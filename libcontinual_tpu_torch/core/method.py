@@ -1,0 +1,152 @@
+"""The Method protocol (``libcontinual_tpu/core/method.py``).
+
+A method owns its modules and its pipelines and exposes the JAX package's
+hooks that the ported methods use: ``start_task`` and ``reset_optimizer`` at
+a task boundary, ``loss`` for a batch, ``train_step`` for one update (with
+the learning rate passed in per step) and ``eval_step`` for predictions. The state it
+works on is a :class:`~libcontinual_tpu_torch.core.state.TrainState`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from libcontinual_tpu_torch.core.optim import make_optimizer, set_lr
+from libcontinual_tpu_torch.core.state import TrainState, make_masks
+from libcontinual_tpu_torch.data.transforms import build_transform
+from libcontinual_tpu_torch.models import compute_dtype
+
+
+def masked_cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    class_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Weighted-mean CE; ``class_mask`` (num_class,) excludes classes by
+    setting their logits to -1e30."""
+    if class_mask is not None:
+        logits = torch.where(class_mask[None, :] > 0, logits, -1e30)
+    ll = F.log_softmax(logits, dim=-1)
+    nll = -ll.gather(-1, labels[:, None].long())[:, 0]
+    if weight is None:
+        return nll.mean()
+    return torch.sum(nll * weight) / torch.clamp(weight.sum(), min=1.0)
+
+
+def weighted_accuracy(logits, labels, weight=None):
+    correct = (logits.argmax(dim=-1) == labels).float()
+    if weight is None:
+        return correct.mean()
+    return torch.sum(correct * weight) / torch.clamp(weight.sum(), min=1.0)
+
+
+class Method:
+    """Base class: config parsing, pipelines, optimizers and the step loop
+    shared by every method. Subclasses provide ``init_state``, ``loss`` and
+    ``eval_logits``. (The JAX package's other hooks, such as ``before_task``
+    and ``after_task``, come with the first ported method that needs them.)"""
+
+    def __init__(self, config: Dict[str, Any], device):
+        self.config = config
+        self.device = torch.device(device)
+        ck = (config.get("classifier") or {}).get("kwargs") or {}
+        self.num_class = int(
+            ck.get("num_class")
+            or config["init_cls_num"] + config["inc_cls_num"] * (config["task_num"] - 1)
+        )
+        self.task_num = int(config["task_num"])
+        self.init_cls_num = int(config["init_cls_num"])
+        self.inc_cls_num = int(config["inc_cls_num"])
+        self.kwargs = ck
+        self.dtype = compute_dtype(config)
+        self._build_pipelines()
+
+    def _backbone_kind(self) -> str:
+        name = self.config["backbone"]["name"].lower()
+        if "vit" in name or "sinet" in name:
+            return "vit"
+        if "alexnet" in name:
+            return "alexnet"
+        if "clip" in name:
+            return "clip"
+        return "resnet"
+
+    def _build_pipelines(self):
+        cfg = self.config
+        common = dict(
+            dataset=str(cfg.get("dataset", "cifar100")),
+            backbone=self._backbone_kind(),
+            image_size=int(cfg.get("image_size", 32)),
+        )
+        self.train_pipeline = build_transform(cfg.get("train_trfms"), mode="train", **common)
+        self.test_pipeline = build_transform(cfg.get("test_trfms"), mode="test", **common)
+        if not cfg.get("augment", True):
+            # `augment: false` trains on the eval transforms
+            self.train_pipeline = self.test_pipeline
+
+    # ------------------------------------------------------------------ state
+
+    def init_state(self, seed: int, sample_input_hw: Tuple[int, int, int]) -> TrainState:
+        raise NotImplementedError
+
+    def trainable_parameters(self, state: TrainState):
+        return list(state.params.parameters())
+
+    def _tx_for_task(self, task_idx: int, params) -> torch.optim.Optimizer:
+        key = "init_optimizer" if task_idx == 0 and "init_optimizer" in self.config else "optimizer"
+        node = self.config[key]
+        return make_optimizer(node["name"], node.get("kwargs") or {}, params)
+
+    def reset_optimizer(self, state: TrainState, task_idx: int) -> TrainState:
+        """Fresh optimizer state per task."""
+        state.opt_state = self._tx_for_task(task_idx, self.trainable_parameters(state))
+        return state
+
+    # ------------------------------------------------------------------ hooks
+
+    def start_task(self, state: TrainState, task_idx: int, class_lo: int, class_hi: int) -> TrainState:
+        """Trainer-called: update the task scalar and class masks."""
+        state.seen_mask, state.prev_mask = make_masks(
+            self.num_class, class_lo, class_hi, self.device
+        )
+        state.task = int(task_idx)
+        return state
+
+    # ----------------------------------------------------------------- compute
+
+    def augment(self, gen: Optional[torch.Generator], images: torch.Tensor, train: bool = True):
+        pipeline = self.train_pipeline if train else self.test_pipeline
+        return pipeline(gen if train else None, images)
+
+    def loss(self, state: TrainState, batch) -> Tuple[torch.Tensor, Dict]:
+        raise NotImplementedError
+
+    def transform_grads(self, state: TrainState) -> None:
+        """Edit the gradients in place after the backward pass."""
+
+    def train_step(self, state: TrainState, batch, lr: float):
+        batch = dict(batch)
+        batch["x"] = self.augment(state.rng, batch["image"], train=True)
+        loss, aux = self.loss(state, batch)
+        opt = state.opt_state
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.transform_grads(state)
+        set_lr(opt, lr)
+        opt.step()
+        state.step += 1
+        with torch.no_grad():
+            acc = weighted_accuracy(aux["logits"], batch["label"], batch.get("weight"))
+        return state, {"loss": loss.detach(), "acc": acc}
+
+    def eval_logits(self, state: TrainState, x, task_id: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch, task_id: int) -> torch.Tensor:
+        x = self.augment(None, batch["image"], train=False)
+        return self.eval_logits(state, x, task_id).argmax(dim=-1)

@@ -1,0 +1,27 @@
+"""Backbone factory (``libcontinual_tpu/models/__init__.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from libcontinual_tpu_torch.registry import BACKBONES
+
+# importing the module populates the registry
+from libcontinual_tpu_torch.models import vit as _vit  # noqa: F401
+
+
+def compute_dtype(config: Dict[str, Any]) -> torch.dtype:
+    return torch.bfloat16 if str(config.get("dtype", "bfloat16")) == "bfloat16" else torch.float32
+
+
+def get_backbone(config: Dict[str, Any], generator: Optional[torch.Generator] = None):
+    """Build the backbone module from ``config['backbone']`` = {name, kwargs}
+    on the CPU; the caller moves it to its device."""
+    node = config["backbone"]
+    kwargs = dict(node.get("kwargs") or {})
+    kwargs.pop("num_classes", None)  # heads are owned by methods
+    return BACKBONES.get(node["name"])(
+        **{**kwargs, "dtype": compute_dtype(config), "generator": generator}
+    )

@@ -1,0 +1,221 @@
+"""Vision Transformer for the prompt family (``libcontinual_tpu/models/vit.py``).
+
+What the L2P path needs: the pure self-attention block, ``prepend_tokens``
+(prompt tokens in front of [cls; patches] at layer 0) and
+``feature_mode="prompt_mean"``.
+
+Rounding points are the JAX package's: a residual stream in the compute
+dtype (bf16 on the card), LayerNorm statistics and arithmetic in f32 with
+the result rounded to the compute dtype, the MLP's GELU in its tanh form at
+bf16 and exact erf at f32, and the final norm in f32. The linear
+projections and the patch-embed convolution are ``torch.nn.functional``
+calls, as the JAX package leaves them to XLA; attention is the packed-qkv
+kernel of :mod:`libcontinual_tpu_torch.ops.attention`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from libcontinual_tpu_torch.ops.attention import fused_qkv_attention
+from libcontinual_tpu_torch.registry import BACKBONES
+
+
+# ------------------------------------------------------------ initializers
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, gen: Optional[torch.Generator]) -> None:
+    """flax ``lecun_normal``: a normal truncated at two deviations, rescaled so
+    the variance is ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def trunc_normal_02_(w: torch.Tensor, gen: Optional[torch.Generator]) -> None:
+    """flax ``truncated_normal(0.02)``: N(0, 0.02) truncated at +-0.04."""
+    nn.init.trunc_normal_(w, 0.0, 0.02, -0.04, 0.04, generator=gen)
+
+
+def _init_dense(lin: nn.Linear, gen) -> None:
+    with torch.no_grad():
+        lecun_normal_(lin.weight, lin.in_features, gen)
+        lin.bias.zero_()
+
+
+# ------------------------------------------------------------------ blocks
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=...)``: input, kernel and bias in ``dtype``."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=...)``: computed in f32, result in ``dtype``."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
+    return y.to(dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def reset_parameters(self, gen=None) -> None:
+        _init_dense(self.fc1, gen)
+        _init_dense(self.fc2, gen)
+
+    def forward(self, x):
+        x = dense(self.fc1, x, self.dtype)
+        # tanh GELU at bf16 (equal to erf GELU at bf16 resolution), erf at f32
+        x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
+        return dense(self.fc2, x, self.dtype)
+
+
+class ViTAttention(nn.Module):
+    """Pure self-attention: packed qkv projection, the fused kernel, proj."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is not a multiple of {num_heads} heads")
+        self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
+        self.qkv = nn.Linear(dim, 3 * dim)  # output columns [q | k | v]
+        self.proj = nn.Linear(dim, dim)
+
+    def reset_parameters(self, gen=None) -> None:
+        _init_dense(self.qkv, gen)
+        _init_dense(self.proj, gen)
+
+    def forward(self, x):
+        qkv = dense(self.qkv, x, self.dtype)
+        hd = self.dim // self.num_heads
+        o = fused_qkv_attention(qkv, 1.0 / math.sqrt(hd), self.num_heads)
+        return dense(self.proj, o, self.dtype)
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, dtype=torch.bfloat16, ln_eps=1e-6):
+        super().__init__()
+        self.dtype = dtype
+        self.ln_1 = nn.LayerNorm(dim, eps=ln_eps)
+        self.attn = ViTAttention(dim, num_heads, dtype)
+        self.ln_2 = nn.LayerNorm(dim, eps=ln_eps)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dtype)
+
+    def reset_parameters(self, gen=None) -> None:
+        self.ln_1.reset_parameters()
+        self.ln_2.reset_parameters()
+        self.attn.reset_parameters(gen)
+        self.mlp.reset_parameters(gen)
+
+    def forward(self, x):
+        x = x + self.attn(layer_norm(self.ln_1, x, self.dtype))
+        return x + self.mlp(layer_norm(self.ln_2, x, self.dtype))
+
+
+class VisionTransformer(nn.Module):
+    """ViT-B/16 by default; ``forward`` takes float NHWC images and returns
+    ``{"features", "tokens"}`` in f32."""
+
+    def __init__(
+        self,
+        img_size: int = 224,
+        patch_size: int = 16,
+        embed_dim: int = 768,
+        depth: int = 12,
+        num_heads: int = 12,
+        mlp_ratio: float = 4.0,
+        dtype=torch.bfloat16,
+        block_ln_eps: float = 1e-6,
+        final_ln_eps: float = 1e-6,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.patch_size, self.embed_dim = patch_size, embed_dim
+        self.dtype = dtype
+        n_patches = (img_size // patch_size) ** 2
+        self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, embed_dim))
+        self.blocks = nn.ModuleList(
+            ViTBlock(embed_dim, num_heads, mlp_ratio, dtype, block_ln_eps) for _ in range(depth)
+        )
+        self.norm = nn.LayerNorm(embed_dim, eps=final_ln_eps)
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, gen=None) -> None:
+        with torch.no_grad():
+            lecun_normal_(self.patch_embed.weight, 3 * self.patch_size ** 2, gen)
+            self.patch_embed.bias.zero_()
+            trunc_normal_02_(self.cls_token, gen)
+            trunc_normal_02_(self.pos_embed, gen)
+        for blk in self.blocks:
+            blk.reset_parameters(gen)
+        self.norm.reset_parameters()
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        prepend_tokens: Optional[torch.Tensor] = None,
+        feature_mode: str = "cls",
+    ) -> Dict[str, torch.Tensor]:
+        dt = self.dtype
+        b = x.shape[0]
+        pe = self.patch_embed
+        x = F.conv2d(
+            x.permute(0, 3, 1, 2).to(dt), pe.weight.to(dt), pe.bias.to(dt),
+            stride=self.patch_size,
+        )
+        x = x.flatten(2).transpose(1, 2)  # (B, patches, D), row-major patch order
+        cls = self.cls_token.to(dt).expand(b, 1, self.embed_dim)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        n_prompt = 0
+        if prepend_tokens is not None:
+            n_prompt = prepend_tokens.shape[1]
+            x = torch.cat([prepend_tokens.to(dt), x], dim=1)
+        for blk in self.blocks:
+            x = blk(x)
+        x = layer_norm(self.norm, x, torch.float32)
+        if feature_mode == "prompt_mean" and n_prompt > 0:
+            feats = x[:, :n_prompt].mean(dim=1)
+        else:
+            feats = x[:, n_prompt, :]
+        return {"features": feats, "tokens": x}
+
+
+@BACKBONES.register(
+    "ViTZoo",
+    aliases=(
+        "vit_base_patch16_224",
+        "vit-b-16",
+        "vit_pt_imnet",
+    ),
+)
+def vitzoo(**kwargs):
+    return VisionTransformer(
+        img_size=int(kwargs.get("img_size", 224)),
+        dtype=kwargs.get("dtype", torch.bfloat16),
+        block_ln_eps=float(kwargs.get("block_ln_eps", 1e-6)),
+        final_ln_eps=float(kwargs.get("final_ln_eps", 1e-6)),
+        generator=kwargs.get("generator"),
+    )
+
+
+@BACKBONES.register("vit_tiny_test")
+def vit_tiny_test(**kwargs):
+    """Small ViT for unit tests (32x32/patch 8, 4 blocks)."""
+    return VisionTransformer(
+        img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=4,
+        dtype=kwargs.get("dtype", torch.float32),
+        block_ln_eps=float(kwargs.get("block_ln_eps", 1e-6)),
+        final_ln_eps=float(kwargs.get("final_ln_eps", 1e-6)),
+        generator=kwargs.get("generator"),
+    )

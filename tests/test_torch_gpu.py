@@ -1,0 +1,65 @@
+"""Card-only checks of the port's CUDA kernels against their plain PyTorch
+versions. They need a CUDA device and ``nvcc``, and skip elsewhere. Run them
+on the card with ``python -m pytest tests/test_torch_gpu.py -m gpu
+--noconftest`` (``tests/conftest.py`` imports jax, which the card's machine
+may not have).
+``chip_smoke.py`` makes the same comparisons at the main path's shapes."""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from libcontinual_tpu_torch.ops import attention as T
+
+pytestmark = pytest.mark.gpu
+
+#: bf16: identical rounding points, f32 sums in another order; two bf16 ulps
+#: at the largest output magnitude. f32: summation order only.
+TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 70, 2, 32), (2, 197, 12, 64)])
+def test_kernels_match_plain(cuda, dtype, shape):
+    b, s, h, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn(b, s, 3 * h * hd, device=cuda, generator=g).to(dtype)
+    go = torch.randn(b, s, h * hd, device=cuda, generator=g).to(dtype)
+    scale = hd ** -0.5
+    out = T.qkv_attention_cuda(qkv, scale, h)
+    dqkv = T.qkv_attention_bwd_cuda(qkv, go, scale, h)
+    torch.cuda.synchronize()
+    assert _err(out, T.qkv_attention_plain(qkv, scale, h)) <= TOL[dtype]
+    assert _err(dqkv, T.qkv_attention_bwd_plain(qkv, go, scale, h)) <= TOL[dtype]
+
+
+def test_autograd_function_launches_both_kernels(cuda):
+    qkv = torch.randn(2, 9, 3 * 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    T.reset_launches()
+    T.fused_qkv_attention(qkv, 0.25, 4).float().sum().backward()
+    assert T.LAUNCHES == {"qkv_fwd": 1, "qkv_bwd": 1}
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    # (B, S, 3D) with D 64: 4 heads of 16
+    with pytest.raises(ValueError, match="sequence length"):
+        T.qkv_attention_cuda(torch.zeros(1, 300, 192, device=cuda), 0.25, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        T.qkv_attention_cuda(torch.zeros(1, 8, 192, device=cuda), 0.25, 3)
+    with pytest.raises(TypeError):
+        T.qkv_attention_cuda(torch.zeros(1, 8, 192, device=cuda, dtype=torch.float16), 0.25, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        T.qkv_attention_cuda(torch.zeros(1, 192, 8, device=cuda).transpose(1, 2), 0.25, 4)

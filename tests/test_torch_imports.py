@@ -1,0 +1,73 @@
+"""The PyTorch port stands alone: importing it, and running its CLI's
+``--help``, loads no JAX, Flax, optax, PyYAML or ``libcontinual_tpu``."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "flax", "optax", "yaml", "libcontinual_tpu")
+
+_PROBE = """
+import json, runpy, sys
+{body}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split('.')[0] in {forbidden!r})))
+"""
+
+MODULES = [
+    "libcontinual_tpu_torch",
+    "libcontinual_tpu_torch.core.trainer",
+    "libcontinual_tpu_torch.convert",
+    "libcontinual_tpu_torch.ops.attention",
+    "libcontinual_tpu_torch.config",
+]
+
+
+def _loaded(body: str, args=()):
+    code = _PROBE.format(body=body, forbidden=set(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_loads_no_jax_or_yaml(module):
+    assert _loaded(f"import {module}") == []
+
+
+def test_cli_help_loads_no_jax_or_yaml():
+    body = (
+        "sys.argv = ['libcontinual_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('libcontinual_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code"
+    )
+    assert _loaded(body) == []
+
+
+def test_config_without_file_needs_no_yaml():
+    body = (
+        "from libcontinual_tpu_torch.config import Config\n"
+        "cfg = Config(overrides={'seed': 3}).get_config_dict()\n"
+        "assert cfg['seed'] == 3 and cfg['optimizer']['name'] == 'SGD'"
+    )
+    assert _loaded(body) == []
+
+
+def test_cli_parses_overrides_without_yaml():
+    from libcontinual_tpu_torch.__main__ import parse_overrides
+
+    assert parse_overrides(["epoch=2", "lr=1e-3", "augment=False", "dataset=synthetic",
+                            "mesh={\"data\": 1}", "x=null"]) == {
+        "epoch": 2, "lr": 1e-3, "augment": False, "dataset": "synthetic",
+        "mesh": {"data": 1}, "x": None,
+    }
