@@ -8,7 +8,10 @@ Layout maps (the inverse of ``_load_timm_torch_into`` in
   * Conv ``kernel (H, W, I, O)`` -> Conv2d ``weight (O, I, H, W)``;
   * LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
   * ``cls_token`` and ``pos_embed`` as they are;
-  * L2P's ``{"head": {"Dense_0": ...}, "prompt": {"prompt", "key"}}``.
+  * L2P's ``{"head": {"Dense_0": ...}, "prompt": {"prompt", "key"}}``;
+  * DualPrompt's, CODA-Prompt's and DAP's ``{"head": {"Dense_0": ...},
+    "prompt": {name: array}}``, name for name into the method's
+    ``nn.ParameterDict``.
 
 Values are copied into the modules' existing tensors, so each module keeps
 its own dtype and device.
@@ -74,6 +77,18 @@ def load_l2p_params(params: nn.ModuleDict, p: Tree) -> None:
     _put(params["prompt"].key, _tensor(p["prompt"]["key"]), "prompt.key")
 
 
+def load_prompt_dict_params(params: nn.ModuleDict, p: Tree) -> None:
+    """A trainable tree whose prompts are a flat dict of arrays
+    (DualPrompt, CODA-Prompt, DAP) into ``head`` and a ``ParameterDict``."""
+    load_dense(params["head"].dense, p["head"]["Dense_0"], "head.Dense_0")
+    prompt = params["prompt"]
+    if set(prompt.keys()) != set(p["prompt"]):
+        raise ValueError(f"prompt names: source {sorted(p['prompt'])} vs module "
+                         f"{sorted(prompt.keys())}")
+    for name, t in prompt.items():
+        _put(t, _tensor(p["prompt"][name]), f"prompt.{name}")
+
+
 def prompt_state_from_flax(method, params: Tree, frozen: Tree, seed: int = 0):
     """A port ``TrainState`` for a prompt method holding the JAX state's
     weights: ``params`` is ``state.params`` and ``frozen`` is
@@ -87,5 +102,8 @@ def prompt_state_from_flax(method, params: Tree, frozen: Tree, seed: int = 0):
         "head": LinearHead(method.embed_dim, method.num_class),
         "prompt": method.init_prompt_params(None),
     })
-    load_l2p_params(modules, params)
+    if isinstance(modules["prompt"], nn.ParameterDict):
+        load_prompt_dict_params(modules, params)
+    else:
+        load_l2p_params(modules, params)
     return method.make_state(vit, modules, seed)

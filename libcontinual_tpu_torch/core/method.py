@@ -1,10 +1,11 @@
 """The Method protocol (``libcontinual_tpu/core/method.py``).
 
 A method owns its modules and its pipelines and exposes the JAX package's
-hooks that the ported methods use: ``start_task`` and ``reset_optimizer`` at
-a task boundary, ``loss`` for a batch, ``train_step`` for one update (with
-the learning rate passed in per step) and ``eval_step`` for predictions. The state it
-works on is a :class:`~libcontinual_tpu_torch.core.state.TrainState`.
+hooks that the ported methods use: ``start_task``, ``before_task`` and
+``reset_optimizer`` at the start of a task and ``after_task`` at its end,
+``loss`` for a batch, ``train_step`` for one update (with the learning rate
+passed in per step) and ``eval_step`` for predictions. The state it works on
+is a :class:`~libcontinual_tpu_torch.core.state.TrainState`.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ def weighted_accuracy(logits, labels, weight=None):
 class Method:
     """Base class: config parsing, pipelines, optimizers and the step loop
     shared by every method. Subclasses provide ``init_state``, ``loss`` and
-    ``eval_logits``. (The JAX package's other hooks, such as ``before_task``
-    and ``after_task``, come with the first ported method that needs them.)"""
+    ``eval_logits``. (The JAX package's other hooks, such as
+    ``on_buffer_updated``, come with the first ported method that needs them.)"""
 
     def __init__(self, config: Dict[str, Any], device):
         self.config = config
@@ -114,6 +115,17 @@ class Method:
             self.num_class, class_lo, class_hi, self.device
         )
         state.task = int(task_idx)
+        return state
+
+    def before_task(self, state: TrainState, task_idx: int, task_data) -> TrainState:
+        """Trainer-called after ``start_task`` and before the optimizer is
+        reset. A hook that replaces parameter values writes them in place
+        under ``torch.no_grad()``, so the optimizer's ``Parameter`` objects
+        stay the same."""
+        return state
+
+    def after_task(self, state: TrainState, task_idx: int, task_data) -> TrainState:
+        """Trainer-called after the task's training epochs."""
         return state
 
     # ----------------------------------------------------------------- compute

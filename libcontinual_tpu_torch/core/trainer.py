@@ -218,6 +218,7 @@ class Trainer:
             lo, hi = self.train_stream.class_range(task_idx)
             task_data = self.train_stream.task(task_idx)
             self.state = method.start_task(self.state, task_idx, lo, hi)
+            self.state = method.before_task(self.state, task_idx, task_data)
             self.state = method.reset_optimizer(self.state, task_idx)
             steps_per_epoch = _ceil_div(len(task_data), self.batch_size)
             epochs = self.init_epoch if task_idx == 0 else self.inc_epoch
@@ -228,6 +229,7 @@ class Trainer:
             )
             if epochs > 0:
                 self._train_task(task_idx, task_data, sched, epochs)
+            self.state = method.after_task(self.state, task_idx, task_data)
 
             res = self._validate(task_idx)
             per_task_acc = np.asarray(res["per_task_acc"])

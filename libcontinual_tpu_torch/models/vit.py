@@ -1,8 +1,9 @@
 """Vision Transformer for the prompt family (``libcontinual_tpu/models/vit.py``).
 
-What the L2P path needs: the pure self-attention block, ``prepend_tokens``
-(prompt tokens in front of [cls; patches] at layer 0) and
-``feature_mode="prompt_mean"``.
+What the prompt family needs: the pure self-attention block,
+``prepend_tokens`` (prompt tokens in front of [cls; patches] at layer 0: L2P,
+DAP), ``prefix_kv`` (per-block prompt keys and values in front of each
+head's keys: DualPrompt, CODA-Prompt) and ``feature_mode="prompt_mean"``.
 
 Rounding points are the JAX package's: a residual stream in the compute
 dtype (bf16 on the card), LayerNorm statistics and arithmetic in f32 with
@@ -10,19 +11,21 @@ the result rounded to the compute dtype, the MLP's GELU in its tanh form at
 bf16 and exact erf at f32, and the final norm in f32. The linear
 projections and the patch-embed convolution are ``torch.nn.functional``
 calls, as the JAX package leaves them to XLA; attention is the packed-qkv
-kernel of :mod:`libcontinual_tpu_torch.ops.attention`.
+kernel of :mod:`libcontinual_tpu_torch.ops.attention`, or in a block with a
+prefix the prefix-KV kernel of :mod:`libcontinual_tpu_torch.ops.prefix_attention`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from libcontinual_tpu_torch.ops.attention import fused_qkv_attention
+from libcontinual_tpu_torch.ops.prefix_attention import fused_prefix_attention
 from libcontinual_tpu_torch.registry import BACKBONES
 
 
@@ -79,8 +82,12 @@ class MLP(nn.Module):
         return dense(self.fc2, x, self.dtype)
 
 
+Prefix = Tuple[torch.Tensor, torch.Tensor]  # (pk, pv), each (B, P, D)
+
+
 class ViTAttention(nn.Module):
-    """Pure self-attention: packed qkv projection, the fused kernel, proj."""
+    """Packed qkv projection, the fused kernel, proj. With a prefix, the
+    prompt keys and values join each head's keys (``fused_prefix_attention``)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16):
         super().__init__()
@@ -94,10 +101,20 @@ class ViTAttention(nn.Module):
         _init_dense(self.qkv, gen)
         _init_dense(self.proj, gen)
 
-    def forward(self, x):
+    def forward(self, x, prefix_kv: Optional[Prefix] = None):
         qkv = dense(self.qkv, x, self.dtype)
-        hd = self.dim // self.num_heads
-        o = fused_qkv_attention(qkv, 1.0 / math.sqrt(hd), self.num_heads)
+        scale = 1.0 / math.sqrt(self.dim // self.num_heads)
+        if prefix_kv is None:
+            o = fused_qkv_attention(qkv, scale, self.num_heads)
+        else:
+            pk, pv = prefix_kv
+            # The cast makes a broadcast (batch stride 0) prompt dense when it
+            # changes the dtype, as in the bf16 step. That keeps the gradient's
+            # sum over the batch in the prompt's own dtype (f32), as in the JAX
+            # package; a cast before the broadcast would sum in bf16.
+            o = fused_prefix_attention(
+                qkv, pk.to(self.dtype), pv.to(self.dtype), scale, self.num_heads
+            )
         return dense(self.proj, o, self.dtype)
 
 
@@ -116,8 +133,8 @@ class ViTBlock(nn.Module):
         self.attn.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
 
-    def forward(self, x):
-        x = x + self.attn(layer_norm(self.ln_1, x, self.dtype))
+    def forward(self, x, prefix_kv: Optional[Prefix] = None):
+        x = x + self.attn(layer_norm(self.ln_1, x, self.dtype), prefix_kv)
         return x + self.mlp(layer_norm(self.ln_2, x, self.dtype))
 
 
@@ -166,7 +183,9 @@ class VisionTransformer(nn.Module):
         x: torch.Tensor,
         prepend_tokens: Optional[torch.Tensor] = None,
         feature_mode: str = "cls",
+        prefix_kv: Optional[Dict[int, Prefix]] = None,
     ) -> Dict[str, torch.Tensor]:
+        """``prefix_kv[i]``, where present, is block i's prompt (pk, pv)."""
         dt = self.dtype
         b = x.shape[0]
         pe = self.patch_embed
@@ -181,8 +200,8 @@ class VisionTransformer(nn.Module):
         if prepend_tokens is not None:
             n_prompt = prepend_tokens.shape[1]
             x = torch.cat([prepend_tokens.to(dt), x], dim=1)
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, prefix_kv.get(i) if prefix_kv else None)
         x = layer_norm(self.norm, x, torch.float32)
         if feature_mode == "prompt_mean" and n_prompt > 0:
             feats = x[:, :n_prompt].mean(dim=1)

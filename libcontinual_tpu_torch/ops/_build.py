@@ -3,13 +3,16 @@
 Each ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The library is built
 at its first use (never at import), into ``build/libcontinual_tpu_torch/``
-under the repository root, and its file name carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+under the repository root, and its file name carries a hash of the source,
+of every shared header in ``csrc/`` (``*.cuh``) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. Two libraries may
+build at once, each under its own lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -28,7 +31,8 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -42,10 +46,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}_{digest[:16]}.so")
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
+        glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    ):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
 def _compile(name: str, out: str) -> str:
@@ -64,7 +72,9 @@ def _compile(name: str, out: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``csrc/<name>.cu``, built first if needed."""
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -93,7 +93,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:
+def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:
+    """(B, S, D, hd) of a packed qkv tensor that the kernels take; raises on
+    the device, dtype, layout and head dim they do not take."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {qkv.device}")
     if qkv.dtype not in _DTYPES:
@@ -106,10 +108,15 @@ def _check(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int
     d = d3 // 3
     if d % heads != 0 or d // heads not in _HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d}/{heads} not in {_HEAD_DIMS}")
+    return b, s, d, d // heads
+
+
+def _check(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:
+    b, s, d, hd = _check_packed(qkv, heads, name)
     max_s = _lib().lct_qkv_max_seq()
     if not 0 < s <= max_s:
         raise ValueError(f"{name}: sequence length {s} outside 1..{max_s}")
-    return b, s, d, d // heads
+    return b, s, d, hd
 
 
 def _raise_on(err: int, name: str) -> None:

@@ -79,6 +79,58 @@ def test_stream_equals_jax():
     np.testing.assert_array_equal(test_t.task(2).images, test_j.task(2).images)
 
 
+IMB_TYPES = ["exp", "exp_re", "exp_max", "exp_max_re", "exp_min", "half", "half_re",
+             "halfbal", "oneshot", "step", "fewshot", "none"]
+
+
+@pytest.mark.parametrize("imb_type", IMB_TYPES)
+def test_imbalance_profile_equals_jax(imb_type):
+    for cls_num, task_num, img_max, factor in [(100, 10, 500, 0.01), (8, 2, 24, 0.1)]:
+        args = (imb_type, cls_num, task_num, cls_num // task_num, cls_num // task_num,
+                img_max, factor)
+        assert tcont.imbalance_profile(*args) == jcont.imbalance_profile(*args)
+
+
+@pytest.mark.parametrize("imb_type,shuffle", [("exp", False), ("exp", True), ("half", True),
+                                              ("step", False)])
+def test_imbalanced_stream_equals_jax(imb_type, shuffle):
+    cfg = {"dataset": "synthetic", "task_num": 3, "init_cls_num": 4, "inc_cls_num": 4,
+           "per_class": 12, "seed": 5, "image_size": 8, "imb_type": imb_type,
+           "imb_factor": 0.1, "shuffle": shuffle}
+    js, jmap = jcont.build_stream(cfg, "train")
+    ts, _ = tcont.build_stream(cfg, "train")
+    sizes = [len(ts.task(t)) for t in range(3)]
+    assert sizes == [len(js.task(t)) for t in range(3)] and sum(sizes) < 3 * 4 * 12
+    for t in range(3):
+        np.testing.assert_array_equal(ts.task(t).images, js.task(t).images)
+        np.testing.assert_array_equal(ts.task(t).labels, js.task(t).labels)
+    # the test split stays balanced
+    test_t, _ = tcont.build_stream(cfg, "test", jmap)
+    assert len(test_t.task(0)) == len(jcont.build_stream(cfg, "test", jmap)[0].task(0))
+
+
+def test_tiny_imagenet_class_order_equals_jax(monkeypatch):
+    """Without a ``class_order``, tiny-imagenet's classes are ordered by
+    Python's ``random`` shuffle, not a numpy permutation: both packages'
+    ``build_stream`` on the same arrays give the same map and tasks."""
+    rng = np.random.RandomState(9)
+    src = {"images": rng.randint(0, 256, (60, 4, 4, 3)).astype(np.uint8),
+           "labels": np.repeat(np.arange(20), 3).astype(np.int32),
+           "class_names": [f"c{i}" for i in range(20)]}
+    monkeypatch.setattr(jcont, "load_source", lambda config, mode: src)
+    monkeypatch.setattr(tcont, "load_source", lambda config, mode: src)
+    cfg = {"dataset": "tiny-imagenet", "task_num": 4, "init_cls_num": 5, "inc_cls_num": 5,
+           "seed": 1993}
+    js, jmap = jcont.build_stream(cfg, "train")
+    ts, tmap = tcont.build_stream(cfg, "train")
+    np.testing.assert_array_equal(tmap, jmap)
+    assert not np.array_equal(tmap, tcont.build_class_map(20, seed=1993))
+    for t in range(4):
+        np.testing.assert_array_equal(ts.task(t).labels, js.task(t).labels)
+        np.testing.assert_array_equal(ts.task(t).images, js.task(t).images)
+    assert ts.class_names == js.class_names
+
+
 def test_missing_dataset_root_raises():
     with pytest.raises(FileNotFoundError):
         tcont.build_stream({"dataset": "cifar100", "data_root": "/nonexistent",

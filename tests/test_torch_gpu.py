@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from libcontinual_tpu_torch.ops import attention as T
+from libcontinual_tpu_torch.ops import prefix_attention as PT
 
 pytestmark = pytest.mark.gpu
 
@@ -63,3 +64,58 @@ def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         T.qkv_attention_cuda(torch.zeros(1, 8, 192, device=cuda, dtype=torch.float16), 0.25, 4)
     with pytest.raises(ValueError, match="contiguous"):
         T.qkv_attention_cuda(torch.zeros(1, 192, 8, device=cuda).transpose(1, 2), 0.25, 4)
+
+
+def _prefix_inputs(cuda, shape, dtype, layout):
+    b, s, p, h, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(b, s, 3 * h * hd, device=cuda, generator=g).to(dtype)
+    go = torch.randn(b, s, h * hd, device=cuda, generator=g).to(dtype)
+    rows = b if layout == "image" else 1
+    pk, pv = (torch.randn(rows, p, h * hd, device=cuda, generator=g).to(dtype).expand(b, -1, -1)
+              for _ in range(2))
+    return qkv, pk, pv, go
+
+
+@pytest.mark.parametrize("layout", ["image", "broadcast"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 3, 4, 16), (3, 70, 1, 2, 32), (2, 197, 10, 12, 64),
+                                   (1, 59, 5, 2, 64)])  # (B, S, P, H, hd); 59 + 5 = one key tile
+def test_prefix_kernels_match_plain(cuda, dtype, shape, layout):
+    hd = shape[-1]
+    qkv, pk, pv, go = _prefix_inputs(cuda, shape, dtype, layout)
+    scale = hd ** -0.5
+    out = PT.prefix_attention_cuda(qkv, pk, pv, scale, shape[3])
+    grads = PT.prefix_attention_bwd_cuda(qkv, pk, pv, go, scale, shape[3])
+    torch.cuda.synchronize()
+    assert _err(out, PT.prefix_attention_plain(qkv, pk, pv, scale, shape[3])) <= TOL[dtype]
+    ref = PT.prefix_attention_bwd_plain(qkv, pk, pv, go, scale, shape[3])
+    for a, r in zip(grads, ref):
+        assert a.shape == r.shape and _err(a, r) <= TOL[dtype]
+
+
+def test_prefix_autograd_function_launches_both_kernels(cuda):
+    """Also when qkv needs no gradient (a ViT's first block, whose input
+    holds no prompt): the backward still runs and writes the prompt's."""
+    qkv = torch.randn(2, 9, 3 * 64, device=cuda, dtype=torch.bfloat16)
+    pk = torch.randn(2, 3, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    pv = torch.randn(2, 3, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    PT.reset_launches()
+    PT.fused_prefix_attention(qkv, pk, pv, 0.25, 4).float().sum().backward()
+    assert PT.LAUNCHES == {"pqkv_fwd": 1, "pqkv_bwd": 1}
+    assert pk.grad is not None and pv.grad is not None and pv.grad.abs().sum() > 0
+
+
+def test_prefix_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    qkv = torch.zeros(1, 250, 192, device=cuda)
+    with pytest.raises(ValueError, match="S \\+ P"):
+        PT.prefix_attention_cuda(qkv, torch.zeros(1, 7, 64, device=cuda),
+                                 torch.zeros(1, 7, 64, device=cuda), 0.25, 4)
+    pk = torch.zeros(1, 6, 64, device=cuda)
+    assert PT.prefix_attention_cuda(qkv, pk, pk, 0.25, 4).shape == (1, 250, 64)  # 256 keys
+    with pytest.raises(ValueError, match="same"):
+        PT.prefix_attention_cuda(qkv[:, :8], pk, pk[:, :2], 0.25, 4)
+    with pytest.raises(ValueError, match="does not match"):
+        PT.prefix_attention_cuda(qkv[:, :8], pk.bfloat16(), pk.bfloat16(), 0.25, 4)
+    with pytest.raises(ValueError, match="head dim"):
+        PT.prefix_attention_cuda(qkv[:, :8], pk, pk, 0.25, 3)

@@ -25,6 +25,10 @@ MODULES = [
     "libcontinual_tpu_torch.core.trainer",
     "libcontinual_tpu_torch.convert",
     "libcontinual_tpu_torch.ops.attention",
+    "libcontinual_tpu_torch.ops.prefix_attention",
+    "libcontinual_tpu_torch.methods.prompt_methods",
+    "libcontinual_tpu_torch.methods.dap",
+    "libcontinual_tpu_torch.data.continual",
     "libcontinual_tpu_torch.config",
 ]
 
@@ -61,6 +65,30 @@ def test_config_without_file_needs_no_yaml():
         "assert cfg['seed'] == 3 and cfg['optimizer']['name'] == 'SGD'"
     )
     assert _loaded(body) == []
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared ``.cuh`` header changes every library's build
+    path, so a stale library is never loaded."""
+    from libcontinual_tpu_torch.ops import _build
+
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "b.cu").write_text("// no header\n")
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    before = {n: _build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "common.cuh").write_text("// two\n")
+    after = {n: _build.library_path(n) for n in ("a", "b")}
+    assert all(before[n] != after[n] for n in before)
+    assert before["a"] != before["b"] and os.path.basename(after["a"]).startswith("a_")
+
+
+def test_real_sources_share_one_header():
+    from libcontinual_tpu_torch.ops import _build
+
+    for name in ("qkv_attention", "prefix_attention"):
+        with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
+            assert '#include "attention_kernels.cuh"' in f.read()
 
 
 def test_cli_parses_overrides_without_yaml():

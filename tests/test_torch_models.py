@@ -55,6 +55,40 @@ def test_vit_tiny_prompted_matches_jax():
                                    atol=TOL, rtol=TOL, err_msg=key)
 
 
+@pytest.mark.parametrize("per_image", [False, True])
+def test_vit_tiny_prefix_kv_matches_jax(per_image):
+    """Prefix keys and values on blocks 0 and 2, broadcast over the batch (as
+    DualPrompt trains) or one per image (as it evaluates); features and the
+    prefix gradients of a fixed random projection of the features (the CLS
+    readout leaves the final LayerNorm with a norm that does not depend on
+    the input, so the gradient of sum(features ** 2) would be noise)."""
+    jm, params, tm, x = _pair(1e-5)
+    rng = np.random.RandomState(3)
+    lens = {0: 3, 2: 5}
+    kv = {i: [rng.rand(3 if per_image else 1, n, 64).astype(np.float32) for _ in range(2)]
+          for i, n in lens.items()}
+    u = rng.randn(64, 8).astype(np.float32)
+    jkv = {i: tuple(jnp.broadcast_to(jnp.asarray(a), (3,) + a.shape[1:]) for a in pair)
+           for i, pair in kv.items()}
+
+    def jfeat(jkv):
+        out = jm.apply({"params": params}, jnp.asarray(x), train=False, prefix_kv=jkv)
+        return jnp.sum(out["features"] @ jnp.asarray(u)), out["features"]
+
+    (_, feat_j), grads_j = jax.value_and_grad(jfeat, has_aux=True)(jkv)
+    leaves = {i: [torch.from_numpy(a).requires_grad_() for a in pair] for i, pair in kv.items()}
+    tkv = {i: tuple(t.expand(3, -1, -1) for t in pair) for i, pair in leaves.items()}
+    feat_t = tm(torch.from_numpy(x), prefix_kv=tkv)["features"]
+    (feat_t @ torch.from_numpy(u)).sum().backward()
+    np.testing.assert_allclose(feat_t.detach().numpy(), np.asarray(feat_j), atol=TOL, rtol=TOL)
+    for i, pair in leaves.items():
+        for t, j in zip(pair, grads_j[i]):
+            j = np.asarray(j) if per_image else np.asarray(j).sum(0, keepdims=True)
+            # a gradient that the tolerance could not tell from zero tests nothing
+            assert np.linalg.norm(j) > 100 * TOL
+            np.testing.assert_allclose(t.grad.numpy(), j, atol=TOL, rtol=TOL)
+
+
 def test_bf16_forward_keeps_the_rounding_points():
     _, _, tm, x = _pair(1e-5)
     tm = tm.to(torch.bfloat16)
