@@ -7,31 +7,35 @@ Needs one CUDA card and ``nvcc``; it raises without them. Phases, each of
 which raises on failure:
 
   1. environment: torch, CUDA, the card's name and power limit;
-  2. build: both kernel libraries from ``libcontinual_tpu_torch/ops/csrc``
-     (``qkv_attention``, ``prefix_attention``), compiled at once, with each
-     one's ptxas report;
+  2. build: the kernel library ``libcontinual_tpu_torch/ops/csrc/attention.cu``
+     (one ``nvcc``), with its ptxas report;
   3. kernel checks, forward and backward, against the plain PyTorch versions:
      the packed-qkv kernels at a small odd shape (f32, bf16) and at the
      slices' shapes (B 16, S 197, 202 and 222, D 768, 12 heads, bf16); the
      prefix-KV kernels at a small odd shape (f32, bf16), at the DualPrompt
      and CODA shapes (B 16, S 197, P 3, 4 and 10, bf16), with a prompt
      broadcast over the batch (batch stride 0) and with one that differs per
-     image;
+     image; the masked kernels at small odd shapes (S 17 and 77, f32 and
+     bf16, with the causal mask and with a random finite one) and at the
+     CLIP text tower's (B 16, S 77, D 512, 8 heads, bf16, causal);
   4. the slices: the port's ``Trainer`` (the code behind
      ``python -m libcontinual_tpu_torch``) runs L2P, DualPrompt, CODA-Prompt
      and DAP (on a long-tailed ``imb_type: exp`` stream) on a full-width
-     ViT-B/16 from random init, each for 2 tasks of 10 synthetic classes
-     stored at 32 px and resized to 224 in the step, with the launch counts
-     and the launch shapes of each run (every shape must be one that phase 3
-     checked); then one full-width batch goes through the trained L2P,
-     DualPrompt and DAP states with the kernels and with the plain
-     attention, and the two agree;
+     ViT-B/16, and MoE-Adapter4CL and RAPF on a full-width CLIP (ViT-B/16
+     and the 12-block text tower over the prompts of all 100 classes), from
+     random init, each for 2 tasks of 10 synthetic classes stored at 32 px
+     and resized to 224 in the step, with the launch counts and the launch
+     shapes of each run (every shape must be one that phase 3 checked); then
+     one full-width batch goes through the trained L2P, DualPrompt, DAP and
+     MoE-Adapter4CL states with the kernels and with the plain attention,
+     and the two agree;
   5. timing: each kernel against its plain version and against
      ``scaled_dot_product_attention`` (the yardstick, which the port never
-     calls) at the main path's shapes, and the L2P and DualPrompt train steps
-     at the bench geometry (batch 128, bf16, 32 -> 224) with the kernels and
-     with the plain attention, plus a device-time breakdown of the DualPrompt
-     step from ``torch.profiler``.
+     calls) at the main path's shapes, and the L2P, DualPrompt and
+     MoE-Adapter4CL train steps at the bench geometry (batch 128, bf16,
+     32 -> 224) with the kernels and with the plain attention, plus a
+     device-time breakdown of the DualPrompt and MoE-Adapter4CL steps from
+     ``torch.profiler``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -46,7 +50,6 @@ import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -71,6 +74,14 @@ TIMED = (128, 222, 768, 12)
 P_SMALL = (2, 17, 3, 64, 4)  # (B, S, P, D, heads)
 P_MAIN = [(16, 197, p, 768, 12) for p in (3, 4, 10)]  # DualPrompt g / CODA / DualPrompt e
 P_TIMED = (128, 197, 10, 768, 12)
+M_SMALL = [(2, 17, 64, 4), (2, 77, 64, 4)]  # (B, S, D, heads)
+M_MAIN = [(16, 77, 512, 8)]  # the CLIP text tower: context 77, width 512, 8 heads
+M_TIMED = (100, 77, 512, 8)  # MoE-Adapter4CL encodes the prompts of all 100 classes a step
+
+# the TPU kernel each CUDA kernel replaces: its body's line in
+# libcontinual_tpu/ops/attention.py
+SOURCE_LINES = {"qkv_fwd": 140, "qkv_bwd": 222, "pqkv_fwd": 348, "pqkv_bwd": 394,
+                "mqkv_fwd": 626, "mqkv_bwd": 653}
 
 # H100 SXM: HBM bandwidth and dense bf16 tensor-core peak (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -97,12 +108,46 @@ METHOD_KWARGS = {
     "CodaPrompt": {"prompt_length": 8, "pool_size": 100, "mu": 0.0},
     "DAP": {"length": 5, "top_k": 1},
 }
+_CLIP_COMMON = {
+    "dataset": "synthetic", "data_root": "", "image_size": 224,
+    "task_num": 10, "init_cls_num": 10, "inc_cls_num": 10, "batch_size": 128,
+    "seed": 1993, "dtype": "bfloat16", "mesh": {"data": 1, "model": 1},
+}
+# configs/moe_adapter4cl.yaml and configs/rapf10-10.yaml as dicts (the card's
+# machine need not have PyYAML)
+CLIP_CONFIGS = {
+    "MoE_Adapter4CL": {
+        **_CLIP_COMMON, "epoch": 5,
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 0.001, "betas": [0.9, 0.999]}},
+        "lr_scheduler": {"name": "CosineSchedule", "kwargs": {"K": 5}},
+        "backbone": {"name": "clip", "kwargs": {
+            "moe_text_gate": "eot", "moe_experts": 4, "moe_top_k": 2}},
+        "classifier": {"name": "MOE_ADAPTER4CL", "kwargs": {
+            "num_class": 100, "feat_dim": 512, "init_cls_num": 10, "inc_cls_num": 10,
+            "task_num": 10, "prompt_template": "a photo of a {}."}},
+    },
+    "RAPF": {
+        **_CLIP_COMMON, "epoch": 15, "is_rapf": True,
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 0.001, "betas": [0.9, 0.999]}},
+        "lr_scheduler": {"name": "MultiStepLR", "kwargs": {"gamma": 0.1, "milestones": [4, 10]}},
+        "backbone": {"name": "clip", "kwargs": {}},
+        "classifier": {"name": "RAPF", "kwargs": {
+            "num_class": 100, "feat_dim": 512, "init_cls_num": 10, "inc_cls_num": 10,
+            "task_num": 10, "prompt_template": "a good photo of a {}", "beta": 2,
+            "shrinkage": False, "threshold": 0.55, "mix_bias": 0.6}},
+    },
+}
 # parameters that must move in a slice's run
+_MOE = "clip.{}.blocks.{}.moe.{}"
 TRAINED = {
     "L2P": ("head.dense.weight", "prompt.prompt", "prompt.key"),
     "DualPrompt": ("head.dense.weight", "prompt.g_p_0", "prompt.e_p_2", "prompt.e_k_2"),
     "CodaPrompt": ("head.dense.weight", "prompt.e_p_0", "prompt.e_k_0", "prompt.e_a_0"),
     "DAP": ("head.dense.weight", "prompt.taskprompt", "prompt.generalprompt"),
+    "MoE_Adapter4CL": ("clip.logit_scale",) + tuple(
+        _MOE.format(tower, block, leaf) for tower in ("visual", "text") for block in (0, 11)
+        for leaf in ("w_gate", "down", "up")),
+    "RAPF": ("adapter.kernel",),
 }
 PREFIX_BLOCKS = 5  # DualPrompt and CODA-Prompt put prefixes on blocks 0-4
 
@@ -128,20 +173,20 @@ def _card_line() -> str:
 
 def _attention_modules():
     from libcontinual_tpu_torch.ops import attention as A
+    from libcontinual_tpu_torch.ops import masked_attention as MA
     from libcontinual_tpu_torch.ops import prefix_attention as PA
 
-    return A, PA
+    return A, PA, MA
 
 
 def _reset_launches() -> None:
-    A, PA = _attention_modules()
-    A.reset_launches()
-    PA.reset_launches()
+    for mod in _attention_modules():
+        mod.reset_launches()
 
 
 def _launches() -> dict:
-    A, PA = _attention_modules()
-    return {**A.LAUNCHES, **PA.LAUNCHES}
+    A, PA, MA = _attention_modules()
+    return {**A.LAUNCHES, **PA.LAUNCHES, **MA.LAUNCHES}
 
 
 def _shape_key(kname, qkv, *rest):
@@ -156,10 +201,12 @@ def _shape_key(kname, qkv, *rest):
 def _recorded_shapes(seen: set):
     """Within it, every launch of a kernel wrapper adds its ``_shape_key`` to
     ``seen``; the wrappers themselves run (and count) as before."""
-    A, PA = _attention_modules()
+    A, PA, MA = _attention_modules()
     wrapped = [(A, "qkv_attention_cuda", "qkv_fwd"), (A, "qkv_attention_bwd_cuda", "qkv_bwd"),
                (PA, "prefix_attention_cuda", "pqkv_fwd"),
-               (PA, "prefix_attention_bwd_cuda", "pqkv_bwd")]
+               (PA, "prefix_attention_bwd_cuda", "pqkv_bwd"),
+               (MA, "masked_attention_cuda", "mqkv_fwd"),
+               (MA, "masked_attention_bwd_cuda", "mqkv_bwd")]
     saved = [getattr(mod, attr) for mod, attr, _ in wrapped]
 
     def recording(fn, kname):
@@ -180,23 +227,31 @@ def _recorded_shapes(seen: set):
 # ------------------------------------------------------------------ phases
 
 
+_MODES = {"0": "qkv", "1": "pqkv", "2": "mqkv"}
+
+
 def phase_build():
     from libcontinual_tpu_torch.ops import _build
 
-    A, PA = _attention_modules()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per library, started together
-        list(pool.map(lambda mod: mod._lib(), (A, PA)))
-    print(f"[build] both libraries built and loaded in {time.perf_counter() - t0:.1f} s")
-    for name in ("qkv_attention", "prefix_attention"):
-        log_path = _build.library_path(name) + ".ptxas.txt"
-        with open(log_path) as f:
-            log = f.read()
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"[build] {name} ptxas: {len(regs)} kernels, at most {max(regs, default=0)} "
-              f"registers a thread, at most {max(spills, default=0)} bytes of spill stores "
-              f"({log_path})")
+    _build.lib()  # the one library: one nvcc
+    print(f"[build] {_build.LIBRARY}.cu built and loaded in {time.perf_counter() - t0:.1f} s")
+    log_path = _build.library_path() + ".ptxas.txt"
+    with open(log_path) as f:
+        log = f.read()
+    regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
+    print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers a "
+          f"thread, at most {max(spills, default=0)} bytes of spill stores ({log_path})")
+    # one line per kernel (family, kernel, type, head dim): registers, spills
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
+        nreg = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        if name and nreg and spill:
+            kind, typ, hd, mode = name.groups()
+            print(f"[build]   {_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} "
+                  f"hd {hd:2s}: {nreg.group(1)} registers, {spill.group(1)} bytes spill stores")
 
 
 def _inputs(shape, dtype, dev, seed):
@@ -210,7 +265,7 @@ def _inputs(shape, dtype, dev, seed):
 def phase_checks(dev, errs, checked):
     """The packed-qkv kernels against their plain versions; adds the
     ``_shape_key`` of each checked shape to ``checked``."""
-    A, _ = _attention_modules()
+    A, _, _ = _attention_modules()
     cases = [(SMALL, torch.float32), (SMALL, torch.bfloat16)]
     cases += [(shape, torch.bfloat16) for shape in MAIN]
     for i, (shape, dtype) in enumerate(cases):
@@ -253,7 +308,7 @@ def _prefix_inputs(shape, dtype, dev, seed, layout):
 def phase_prefix_checks(dev, errs, checked):
     """The prefix-KV kernels against their plain versions; adds the
     ``_shape_key`` of each checked shape to ``checked``."""
-    _, PA = _attention_modules()
+    _, PA, _ = _attention_modules()
     cases = [(P_SMALL, torch.float32, "image"), (P_SMALL, torch.bfloat16, "image"),
              (P_SMALL, torch.float32, "broadcast")]
     cases += [(shape, torch.bfloat16, "image") for shape in P_MAIN]
@@ -298,7 +353,57 @@ def phase_prefix_checks(dev, errs, checked):
              "broadcast prompt gradient disagrees")
 
 
+def _masked_inputs(shape, dtype, dev, seed, kind):
+    """qkv, mask, g; ``kind`` "causal" is the text tower's -1e30 mask, "random"
+    a general finite additive mask."""
+    b, s, d, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, 3 * d, device=dev, generator=gen).to(dtype)
+    go = torch.randn(b, s, d, device=dev, generator=gen).to(dtype)
+    if kind == "causal":
+        mask = torch.triu(torch.full((s, s), -1e30, device=dev), diagonal=1)
+    else:
+        mask = 3.0 * torch.randn(s, s, device=dev, generator=gen)
+    return qkv, mask, go
+
+
+def phase_masked_checks(dev, errs, checked):
+    """The masked kernels against their plain versions; adds the
+    ``_shape_key`` of each checked shape to ``checked``."""
+    _, _, MA = _attention_modules()
+    cases = [(shape, dtype, kind) for shape in M_SMALL for dtype in (torch.float32, torch.bfloat16)
+             for kind in ("causal", "random")]
+    cases += [(shape, torch.bfloat16, "causal") for shape in M_MAIN]
+    for i, (shape, dtype, kind) in enumerate(cases):
+        b, s, d, h = shape
+        scale = (d // h) ** -0.5
+        qkv, mask, go = _masked_inputs(shape, dtype, dev, seed=200 + i, kind=kind)
+        checked.update(_shape_key(k, qkv, mask, h) for k in ("mqkv_fwd", "mqkv_bwd"))
+        out = MA.masked_attention_cuda(qkv, mask, scale, h)
+        torch.cuda.synchronize()
+        abs_f, rel_f = _err(out, MA.masked_attention_plain(qkv, mask, scale, h))
+        x = qkv.clone().requires_grad_()
+        MA.fused_masked_qkv_attention(x, mask, scale, h).backward(go)
+        torch.cuda.synchronize()
+        abs_b, rel_b = _err(x.grad, MA.masked_attention_bwd_plain(qkv, mask, go, scale, h))
+        tag = f"B {b} S {s} D {d} H {h} {str(dtype).split('.')[-1]} {kind} mask"
+        print(f"[fwd check] mqkv {tag}: max abs err {abs_f:.3e}, scaled {rel_f:.3e} "
+              f"(tolerance {TOL[dtype]:.1e})")
+        print(f"[bwd check] mqkv {tag}: max abs err {abs_b:.3e}, scaled {rel_b:.3e} "
+              f"(tolerance {TOL[dtype]:.1e})")
+        _require(rel_f <= TOL[dtype], f"masked forward kernel disagrees at {tag}")
+        _require(rel_b <= TOL[dtype], f"masked backward kernel disagrees at {tag}")
+        if shape in M_MAIN:
+            errs["mqkv_fwd"] = max(errs["mqkv_fwd"], abs_f)
+            errs["mqkv_bwd"] = max(errs["mqkv_bwd"], abs_b)
+
+
 def _slice_config(name):
+    if name in CLIP_CONFIGS:  # num_class and image_size stay: 100 prompts, 224 px
+        cfg = copy.deepcopy(CLIP_CONFIGS[name])
+        cfg.update(task_num=2, batch_size=32, per_class=8, epoch=1, val_per_epoch=0)
+        cfg["classifier"]["kwargs"]["task_num"] = 2
+        return cfg
     cfg = copy.deepcopy(BENCH_CONFIG)
     cfg.update(task_num=2, batch_size=32, per_class=8, val_per_epoch=0)
     cfg["classifier"] = {"name": name, "kwargs": {
@@ -319,7 +424,7 @@ def phase_slice(dev, name, seen):
     cfg = Config(overrides=_slice_config(name)).get_config_dict()
     trainer = Trainer(cfg, device=dev)
     state = trainer.state
-    frozen0 = {k: v.clone() for k, v in state.mvars["frozen"].state_dict().items()}
+    frozen0 = {k: v.clone() for k, v in _frozen(state).items()}
     params0 = {k: v.clone() for k, v in state.params.state_dict().items()}
     losses = []
     trainer.epoch_hook = lambda t, e, s, step_losses: losses.append(np.asarray(step_losses))
@@ -339,12 +444,14 @@ def phase_slice(dev, name, seen):
     print(f"[slice {name}] kernel launches in the run: {launches}")
     _require(steps > 0 and all(np.isfinite(x).all() for x in losses), f"{name}: non-finite loss")
     _require(table.shape == (2, 2) and np.isfinite(table).all(), f"{name}: acc table not filled")
-    frozen1 = trainer.state.mvars["frozen"].state_dict()
-    _require(all(torch.equal(v, frozen1[k]) for k, v in frozen0.items()),
-             f"{name}: frozen ViT changed")
+    frozen1 = _frozen(trainer.state)
+    _require(len(frozen0) > 0 and all(torch.equal(v, frozen1[k]) for k, v in frozen0.items()),
+             f"{name}: frozen backbone changed")
     params1 = trainer.state.params.state_dict()
     for pname in TRAINED[name]:
         _require(not torch.equal(params0[pname], params1[pname]), f"{name}: {pname} did not train")
+    if name in CLIP_CONFIGS:
+        return trainer, launches, steps, _clip_slice_launches(trainer, name, launches, steps)
     depth = len(trainer.state.mvars["frozen"].blocks)  # 12 at ViT-B/16
     _require(depth == 12 and trainer.method.embed_dim == 768, f"{name}: not ViT-B/16 width")
     if name in ("DualPrompt", "CodaPrompt"):
@@ -360,7 +467,51 @@ def phase_slice(dev, name, seen):
         minimum = {"qkv_fwd": 2 * depth * steps, "qkv_bwd": depth * steps}
     for k, n in minimum.items():
         _require(launches[k] >= n, f"{name}: {k} launched {launches[k]} times, fewer than {n}")
-    return trainer, launches, steps
+    return trainer, launches, steps, None
+
+
+def _frozen(state) -> dict:
+    """The backbone tensors that must not move: the prompt methods' and
+    RAPF's frozen module, or MoE-Adapter4CL's parameters outside its split."""
+    if "frozen" in state.mvars:
+        return state.mvars["frozen"].state_dict()
+    return {n: p for n, p in state.params.named_parameters() if not p.requires_grad}
+
+
+def _clip_model(trainer):
+    state = trainer.state
+    return state.mvars["frozen"] if "frozen" in state.mvars else state.params["clip"]
+
+
+def _clip_slice_launches(trainer, name, launches, steps):
+    """Checks the full CLIP width and the launch counts of a CLIP slice.
+    MoE-Adapter4CL: per step 12 forwards of each tower and 11 backwards (the
+    first block's attention input depends on frozen weights only), plus the
+    eval's forwards. RAPF: the frozen text tower once per task (its text
+    features), the frozen vision tower forward only."""
+    clip = _clip_model(trainer)
+    text = clip.text
+    width = (clip.visual.embed_dim, text.token_embedding.shape[1], clip.embed_dim)
+    geometry = (len(clip.visual.blocks), len(text.blocks), text.blocks[0].attn.num_heads,
+                tuple(text.token_embedding.shape), text.pos_embed.shape[0])
+    print(f"[slice {name}] CLIP widths (vision, text, embed) {width}, (vision depth, text depth, "
+          f"text heads, vocab x width, context) {geometry}, trainable parameters "
+          f"{sum(p.numel() for p in trainer.method.trainable_parameters(trainer.state))}")
+    _require(width == (768, 512, 512) and geometry == (12, 12, 8, (49408, 512), 77),
+             f"{name}: not full CLIP width")
+    tasks = 2
+    if name == "RAPF":
+        exact = {"qkv_bwd": 0, "mqkv_fwd": 12 * tasks, "mqkv_bwd": 0}
+        minimum = {"qkv_fwd": 12 * steps}
+    else:
+        _require(clip.visual.blocks[0].moe.num_experts == 4, f"{name}: not 4 experts")
+        exact = {"qkv_bwd": 11 * steps, "mqkv_bwd": 11 * steps}
+        minimum = {"qkv_fwd": 12 * steps, "mqkv_fwd": 12 * steps}
+    for k, n in exact.items():
+        _require(launches[k] == n, f"{name}: {k} launched {launches[k]} times, not {n}")
+    for k, n in minimum.items():
+        _require(launches[k] >= n, f"{name}: {k} launched {launches[k]} times, fewer than {n}")
+    return exact
 
 
 class _PlainQKV(torch.autograd.Function):
@@ -369,14 +520,14 @@ class _PlainQKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, scale, heads):
-        A, _ = _attention_modules()
+        A = _attention_modules()[0]
         ctx.save_for_backward(qkv)
         ctx.scale, ctx.heads = scale, heads
         return A.qkv_attention_plain(qkv, scale, heads)
 
     @staticmethod
     def backward(ctx, g):
-        A, _ = _attention_modules()
+        A = _attention_modules()[0]
         (qkv,) = ctx.saved_tensors
         return A.qkv_attention_bwd_plain(qkv, g.contiguous(), ctx.scale, ctx.heads), None, None
 
@@ -386,31 +537,55 @@ class _PlainPrefix(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, pk, pv, scale, heads):
-        _, PA = _attention_modules()
+        PA = _attention_modules()[1]
         ctx.save_for_backward(qkv, pk, pv)
         ctx.scale, ctx.heads = scale, heads
         return PA.prefix_attention_plain(qkv, pk, pv, scale, heads)
 
     @staticmethod
     def backward(ctx, g):
-        _, PA = _attention_modules()
+        PA = _attention_modules()[1]
         qkv, pk, pv = ctx.saved_tensors
         grads = PA.prefix_attention_bwd_plain(qkv, pk, pv, g.contiguous(), ctx.scale, ctx.heads)
         return (*grads, None, None)
 
 
+class _PlainMasked(torch.autograd.Function):
+    """The plain masked forward and backward as one autograd function."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, scale, heads):
+        MA = _attention_modules()[2]
+        ctx.save_for_backward(qkv, mask)
+        ctx.scale, ctx.heads = scale, heads
+        return MA.masked_attention_plain(qkv, mask, scale, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        MA = _attention_modules()[2]
+        qkv, mask = ctx.saved_tensors
+        dqkv = MA.masked_attention_bwd_plain(qkv, mask, g.contiguous(), ctx.scale, ctx.heads)
+        return dqkv, None, None, None
+
+
+_PLAIN = {"fused_qkv_attention": _PlainQKV.apply, "fused_prefix_attention": _PlainPrefix.apply,
+          "fused_masked_qkv_attention": _PlainMasked.apply}
+
+
 @contextlib.contextmanager
 def _plain_attention():
-    """Within it, the ViT's attention calls (with and without a prefix) go to
-    the plain versions."""
+    """Within it, the ViT block's attention calls (plain, with a prefix, with
+    a mask) go to the plain versions."""
     from libcontinual_tpu_torch.models import vit
 
-    saved = vit.fused_qkv_attention, vit.fused_prefix_attention
-    vit.fused_qkv_attention, vit.fused_prefix_attention = _PlainQKV.apply, _PlainPrefix.apply
+    saved = {name: getattr(vit, name) for name in _PLAIN}
+    for name, fn in _PLAIN.items():
+        setattr(vit, name, fn)
     try:
         yield
     finally:
-        vit.fused_qkv_attention, vit.fused_prefix_attention = saved
+        for name, fn in saved.items():
+            setattr(vit, name, fn)
 
 
 def _compare(tag, got: dict, ref: dict, tol=SLICE_TOL):
@@ -513,6 +688,77 @@ def phase_prefix_slice_reference(trainer, dev):
         _compare(tag, got, ref, tol)
 
 
+def _moe_choices(clip):
+    """Within it, every MoEMLP call appends (tower, each row's top-k experts)
+    to the returned list, recomputed from its gate input and router (the
+    reference runs draw no noise)."""
+    from libcontinual_tpu_torch.models.vit import MoEMLP
+
+    choices, handles = [], []
+    for tower, mod in (("visual", clip.visual), ("text", clip.text)):
+        for m in mod.modules():
+            if isinstance(m, MoEMLP):
+                def hook(m, args, out, tower=tower):
+                    logits = args[1].float() @ m.w_gate.float()
+                    top = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+                    choices.append((tower, top[:, : m.top_k].sort(dim=-1).values.detach()))
+                handles.append(m.register_forward_hook(hook))
+    return choices, handles
+
+
+def phase_clip_reference(trainer, dev):
+    """One full-width batch through the trained MoE-Adapter4CL state (16
+    images against the prompts of all 100 classes), with the kernels and
+    with the plain attention: image and text features, logits, and the
+    gradient of a fixed random projection of the logits with respect to the
+    MoE leaves and ``logit_scale`` (the features are unit vectors, so a sum
+    of their squares would be constant), in bf16 and with the CLIP in f32;
+    and the share of images and prompts whose top-k experts agree in every
+    block between the two runs."""
+    state, method = trainer.state, trainer.method
+    td = trainer.test_stream.task(state.task)
+    x = method.augment(None, torch.from_numpy(td.images[:16]).to(dev), train=False)
+    tokens = state.mvars["task_tokens"]
+    u = torch.randn(16, tokens.shape[0], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+
+    def run(clip):
+        leaves = [p for p in clip.parameters() if p.requires_grad]
+        for p in leaves:
+            p.grad = None
+        choices, handles = _moe_choices(clip)
+        try:
+            out = clip(x, tokens)
+            (out["logits_per_image"] * u).sum().backward()
+        finally:
+            for h in handles:
+                h.remove()
+        grads = torch.cat([p.grad.flatten() for p in leaves if p.grad is not None])
+        res = {k: out[k].detach() for k in ("image_features", "text_features", "logits_per_image")}
+        res["MoE and logit_scale grad"] = grads
+        return res, choices
+
+    for tag, clip, tol in (("MoE_Adapter4CL", state.params["clip"], SLICE_TOL),
+                           ("MoE_Adapter4CL f32", _as_f32(state.params["clip"]), SLICE_TOL_F32)):
+        _reset_launches()
+        got, got_choice = run(clip)
+        launches = _launches()
+        want = {"qkv_fwd": 12, "qkv_bwd": 11, "mqkv_fwd": 12, "mqkv_bwd": 11}
+        _require(all(launches[k] == n for k, n in want.items()),
+                 f"{tag} reference run launched {launches}")
+        with _plain_attention():
+            ref, ref_choice = run(clip)
+        agree = {}
+        for tower in ("visual", "text"):
+            a = [c for t, c in got_choice if t == tower]
+            b = [c for t, c in ref_choice if t == tower]
+            same = torch.stack([(p == q).all(dim=-1) for p, q in zip(a, b)]).all(dim=0)
+            agree[tower] = f"{int(same.sum())}/{same.numel()}"
+        print(f"[slice ref {tag}] rows whose top-k experts agree in all 12 blocks, kernels vs "
+              f"plain: images {agree['visual']}, prompts {agree['text']}")
+        _compare(tag, got, ref, tol)
+
+
 def _time_cuda(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -549,37 +795,49 @@ def _pqkv_bounds(b, s, p, d, h):
 
 
 def _time_pair(label, runs, card):
-    """``runs`` maps plain/library/kernel to a function; each is timed
-    twice in the order plain, library, kernel, kernel, library, plain, and
-    the better of the two is kept."""
-    order = ["plain", "library", "kernel", "kernel", "library", "plain"]
+    """``runs`` maps plain, library (SDPA), any other yardstick and kernel
+    to a function, in that order; each is timed twice, in that order and
+    then in reverse, and the better of the two is kept."""
+    order = list(runs) + list(runs)[::-1]
     times = {k: [] for k in runs}
     for k in order:
         times[k].append(_time_cuda(runs[k]))
     best = {k: min(v) for k, v in times.items()}
+    others = "".join(f", sdpa {k} {best[k]:.4f} ms" for k in runs
+                     if k not in ("kernel", "plain", "library"))
     print(f"[timing] {label}: kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms, "
-          f"sdpa {best['library']:.4f} ms (all runs "
+          f"sdpa {best['library']:.4f} ms{others} (all runs "
           f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}) [{card}]")
     return best
 
 
-def _sdpa_runs(q, k, v, go_h, scale):
+def _sdpa_runs(q, k, v, go_h, scale, **mask):
     """SDPA forward, and its backward alone (forward + backward minus the
-    forward, measured by the caller); inputs built outside the timed window."""
+    forward, measured by the caller); inputs built outside the timed window.
+    ``mask``: SDPA's ``attn_mask`` or ``is_causal``."""
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
 
     def fwd():
-        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return F.scaled_dot_product_attention(q, k, v, scale=scale, **mask)
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **mask)
         return torch.autograd.grad(out, (qg, kg, vg), go_h)
 
     return fwd, fwd_bwd
 
 
+def _mqkv_bounds(b, s, d, h):
+    """(forward, backward) bounds of the masked kernels in bf16: read qkv
+    (and g) and the f32 mask, write o (or dqkv), each once."""
+    per_image = s * 3 * d + s * d
+    flops = 2 * b * h * s * s * (d // h)  # one product over S x S
+    return (_bound(2 * b * per_image + 4 * s * s, 2 * flops),
+            _bound(2 * b * (per_image + s * 3 * d) + 4 * s * s, 5 * flops))
+
+
 def phase_kernel_timing(dev, card):
-    A, PA = _attention_modules()
+    A, PA, MA = _attention_modules()
     out = {}
     # packed qkv at the L2P prompted pass
     b, s, d, h = TIMED
@@ -623,23 +881,70 @@ def phase_kernel_timing(dev, card):
     bwd["library"] -= fwd["library"]
     bound_fwd, bound_bwd = _pqkv_bounds(b, s, p, d, h)
     out["pqkv_fwd"], out["pqkv_bwd"] = (fwd, bound_fwd), (bwd, bound_bwd)
+    del qkv, pk, pv, go, q, k, v
+
+    # masked at the CLIP text tower of a MoE-Adapter4CL step (100 prompts)
+    b, s, d, h = M_TIMED
+    scale = (d // h) ** -0.5
+    qkv, mask, go = _masked_inputs(M_TIMED, torch.bfloat16, dev, seed=9, kind="causal")
+    q, k, v = (_heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3))
+    go_h = _heads(go, h)
+    sdpa_fwd, sdpa_fb = _sdpa_runs(q, k, v, go_h, scale, attn_mask=mask.to(torch.bfloat16))
+    causal_fwd, causal_fb = _sdpa_runs(q, k, v, go_h, scale, is_causal=True)
+    tag = f"B {b} S {s} D {d} H {h} bf16 causal"
+    fwd = _time_pair(f"mqkv_fwd at {tag} (sdpa: float attn_mask; is_causal)", {
+        "plain": lambda: MA.masked_attention_plain(qkv, mask, scale, h),
+        "library": sdpa_fwd, "is_causal": causal_fwd,
+        "kernel": lambda: MA.masked_attention_cuda(qkv, mask, scale, h)}, card)
+    bwd = _time_pair(f"mqkv_bwd at {tag} (sdpa: forward + backward)", {
+        "plain": lambda: MA.masked_attention_bwd_plain(qkv, mask, go, scale, h),
+        "library": sdpa_fb, "is_causal": causal_fb,
+        "kernel": lambda: MA.masked_attention_bwd_cuda(qkv, mask, go, scale, h)}, card)
+    for key in ("library", "is_causal"):
+        bwd[key] -= fwd[key]
+    print(f"[timing] mqkv_bwd SDPA backward alone (forward + backward minus forward): float mask "
+          f"{bwd['library']:.4f} ms, is_causal {bwd['is_causal']:.4f} ms [{card}]")
+    bound_fwd, bound_bwd = _mqkv_bounds(b, s, d, h)
+    out["mqkv_fwd"], out["mqkv_bwd"] = (fwd, bound_fwd), (bwd, bound_bwd)
     for name, (_, (bound_ms, by)) in out.items():
         print(f"[bound] {name}: {bound_ms * 1e3:.1f} us, bound by {by}")
     for other in (3, 4):  # the g-prompt and CODA prefix lengths
         (f_ms, f_by), (b_ms, b_by) = _pqkv_bounds(b, s, other, d, h)
         print(f"[bound] pqkv at P {other}: forward {f_ms * 1e3:.1f} us ({f_by}), "
               f"backward {b_ms * 1e3:.1f} us ({b_by})")
+    print_unported_bounds()
     return out
+
+
+def print_unported_bounds():
+    """The bounds of the TPU kernels no ported path runs yet, at a stated
+    shape, in bf16 (f32 for the weight gradient): the generic attention
+    forward at ViT-B/16's (B 128, H 12, S 197, hd 64), and the 3x3 stride-1
+    convolution and its weight gradient at resnet18's first CIFAR stage
+    (N 128, 32 x 32, C 64 -> O 64)."""
+    b, h, s, hd = 128, 12, 197, 64
+    ms, by = _bound(2 * 4 * b * s * h * hd, 4 * b * h * s * s * hd)  # q, k, v read; o written
+    print(f"[bound] _attention_kernel at B {b} H {h} S {s} hd {hd}: {ms * 1e3:.1f} us ({by})")
+    n, hw, c, o = 128, 32, 64, 64
+    act = n * hw * hw * c * 2
+    flops = 2 * n * hw * hw * c * o * 9
+    ms, by = _bound(2 * act + 9 * c * o * 2, flops)  # x read, w read, y written
+    print(f"[bound] conv3x3 _fwd_kernel at {n}x{hw}x{hw}x{c} -> {o}: {ms * 1e3:.1f} us ({by})")
+    ms, by = _bound(2 * act + 9 * c * o * 4, flops)  # x and g read, f32 dw written
+    print(f"[bound] conv3x3 _dw_kernel at {n}x{hw}x{hw}x{c} -> {o}: {ms * 1e3:.1f} us ({by})")
 
 
 def _step_setup(dev, name):
     from libcontinual_tpu_torch.config import Config
     from libcontinual_tpu_torch.registry import METHODS
 
-    cfg = copy.deepcopy(BENCH_CONFIG)
-    cfg["classifier"] = {"name": name, "kwargs": {
-        **METHOD_KWARGS[name], "num_class": 100, "feat_dim": 768,
-        "init_cls_num": 10, "inc_cls_num": 10, "task_num": 10}}
+    if name in CLIP_CONFIGS:  # the shipped config as it is: batch 128, 224 px, 100 classes
+        cfg = copy.deepcopy(CLIP_CONFIGS[name])
+    else:
+        cfg = copy.deepcopy(BENCH_CONFIG)
+        cfg["classifier"] = {"name": name, "kwargs": {
+            **METHOD_KWARGS[name], "num_class": 100, "feat_dim": 768,
+            "init_cls_num": 10, "inc_cls_num": 10, "task_num": 10}}
     cfg = Config(overrides=cfg).get_config_dict()
     method = METHODS.get(name)(cfg, dev)
     state = method.init_state(1993, (32, 32, 3))
@@ -674,7 +979,8 @@ def phase_step_timing(dev, card, name, n_steps=20, profile=False):
     with _plain_attention():
         plain = img_per_s()
     kernel2 = img_per_s()
-    print(f"[timing] {name} train step, ViT-B/16 bf16, batch {bs}, 32->224: "
+    model = "CLIP ViT-B/16 + text tower" if name in CLIP_CONFIGS else "ViT-B/16"
+    print(f"[timing] {name} train step, {model} bf16, batch {bs}, 32->224: "
           f"{kernel:.2f} and {kernel2:.2f} img/s with the kernels, {plain:.2f} img/s "
           f"with the plain attention; peak memory {peak:.2f} GiB [{card}]")
     if profile:
@@ -726,18 +1032,21 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    errs = {"qkv_fwd": 0.0, "qkv_bwd": 0.0, "pqkv_fwd": 0.0, "pqkv_bwd": 0.0}
+    errs = dict.fromkeys(SOURCE_LINES, 0.0)
     checked, seen = set(), set()
     phase_checks(dev, errs, checked)
     phase_prefix_checks(dev, errs, checked)
+    phase_masked_checks(dev, errs, checked)
 
     launches = {}
-    for name in ("L2P", "DualPrompt", "CodaPrompt", "DAP"):
-        trainer, launches[name], _ = phase_slice(dev, name, seen)
+    for name in ("L2P", "DualPrompt", "CodaPrompt", "DAP", "MoE_Adapter4CL", "RAPF"):
+        trainer, launches[name], _, _ = phase_slice(dev, name, seen)
         if name in ("L2P", "DAP"):
             phase_slice_reference(trainer, dev, name)
         elif name == "DualPrompt":
             phase_prefix_slice_reference(trainer, dev)
+        elif name == "MoE_Adapter4CL":
+            phase_clip_reference(trainer, dev)
         del trainer
         torch.cuda.empty_cache()
     # every shape the slices gave a kernel was checked against the plain version
@@ -748,19 +1057,19 @@ def main() -> int:
     times = phase_kernel_timing(dev, card)
     phase_step_timing(dev, card, "L2P")
     phase_step_timing(dev, card, "DualPrompt", profile=True)
+    phase_step_timing(dev, card, "MoE_Adapter4CL", profile=True)
     print(f"[env] all phases in {time.perf_counter() - t_start:.1f} s")
 
-    csrc = "libcontinual_tpu_torch/ops/csrc/"
-    sources = {"qkv": csrc + "qkv_attention.cu", "pqkv": csrc + "prefix_attention.cu"}
-    replaces = {"qkv_fwd": 140, "qkv_bwd": 222, "pqkv_fwd": 348, "pqkv_bwd": 394}
     kernels = []
-    for kname, line in replaces.items():
+    for kname, line in SOURCE_LINES.items():
         best, (bound_ms, by) = times[kname]
+        # this slice's main path, MoE-Adapter4CL, runs the qkv and masked
+        # kernels; the prefix kernels' path is DualPrompt
+        path = "DualPrompt" if kname.startswith("pqkv") else "MoE_Adapter4CL"
         kernels.append({
-            "name": kname, "route": "cuda", "source": sources[kname.split("_")[0]],
+            "name": kname, "route": "cuda", "source": "libcontinual_tpu_torch/ops/csrc/attention.cu",
             "replaces": f"libcontinual_tpu/ops/attention.py:{line}",
-            # this slice's main path, DualPrompt, runs all four kernels
-            "launches": launches["DualPrompt"][kname],
+            "launches": launches[path][kname], "main_path": path,
             "launches_by_path": {p: n[kname] for p, n in launches.items()},
             "max_abs_err": errs[kname], "ms": best["kernel"], "plain_ms": best["plain"],
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": by,

@@ -26,13 +26,22 @@ def masked_cross_entropy(
     labels: torch.Tensor,
     weight: Optional[torch.Tensor] = None,
     class_mask: Optional[torch.Tensor] = None,
+    label_smoothing: float = 0.0,
 ) -> torch.Tensor:
     """Weighted-mean CE; ``class_mask`` (num_class,) excludes classes by
-    setting their logits to -1e30."""
+    setting their logits to -1e30. ``label_smoothing`` s gives
+    ``(1 - s) NLL + s * mean over the unmasked classes of -log p``."""
     if class_mask is not None:
         logits = torch.where(class_mask[None, :] > 0, logits, -1e30)
     ll = F.log_softmax(logits, dim=-1)
     nll = -ll.gather(-1, labels[:, None].long())[:, 0]
+    if label_smoothing > 0.0:
+        if class_mask is not None:
+            valid = (class_mask > 0).to(ll.dtype)[None, :]
+            smooth = -torch.sum(ll * valid, dim=-1) / torch.clamp(valid.sum(dim=-1), min=1.0)
+        else:
+            smooth = -ll.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
     if weight is None:
         return nll.mean()
     return torch.sum(nll * weight) / torch.clamp(weight.sum(), min=1.0)
@@ -95,7 +104,7 @@ class Method:
         raise NotImplementedError
 
     def trainable_parameters(self, state: TrainState):
-        return list(state.params.parameters())
+        return [p for p in state.params.parameters() if p.requires_grad]
 
     def _tx_for_task(self, task_idx: int, params) -> torch.optim.Optimizer:
         key = "init_optimizer" if task_idx == 0 and "init_optimizer" in self.config else "optimizer"

@@ -43,5 +43,5 @@ def compute_frgt(acc_table: np.ndarray, curr_acc: np.ndarray, task_idx: int) -> 
 
 
 def count_parameters(params) -> int:
-    """Total number of scalar parameters of a module."""
-    return int(sum(p.numel() for p in params.parameters()))
+    """Number of scalar parameters of a module that train."""
+    return int(sum(p.numel() for p in params.parameters() if p.requires_grad))

@@ -73,6 +73,8 @@ class Trainer:
         self.test_stream, _ = build_stream(config, "test", cls_map)
 
         self.method = METHODS.get(config["classifier"]["name"])(config, self.device)
+        # the CLIP methods' class prompts read the stream's class names
+        self.method.class_names = getattr(self.train_stream, "class_names", [])
 
         hwc = self.train_stream.task(0).images.shape[1:]
         self.state = self.method.init_state(seed, hwc)

@@ -28,6 +28,10 @@ import torch
 
 NORM_PRESETS = {
     "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
+    "clip": (
+        [0.48145466, 0.4578275, 0.40821073],
+        [0.26862954, 0.26130258, 0.27577711],
+    ),
 }
 
 
@@ -211,12 +215,15 @@ def build_transform(
     mode: str = "train",
     image_size: int = 32,
 ) -> Pipeline:
-    """A pipeline from a ``train_trfms``-style list, or the ViT preset of the
-    JAX package's ``build_transform`` when no list is given."""
-    del image_size  # only the CLIP preset reads it
+    """A pipeline from a ``train_trfms``-style list, or the ViT or CLIP preset
+    of the JAX package's ``build_transform`` when no list is given."""
     if spec is not None:
         return Pipeline([(name, dict(params or {})) for item in spec
                          for name, params in item.items()])
+    if backbone == "clip":  # the same for train and test: no random step
+        mean, std = NORM_PRESETS["clip"]
+        return Pipeline([("Resize", {"size": image_size}), ("CenterCrop", {"size": image_size}),
+                         ("Normalize", {"mean": mean, "std": std})])
     if backbone != "vit":
         raise NotImplementedError(
             f"preset transforms for backbone '{backbone}' are not in the PyTorch port yet"

@@ -2,8 +2,37 @@
 
 from __future__ import annotations
 
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
 import torch
 
 
 def normalized(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + eps)
+
+
+def copy_tree(tree) -> Dict[str, Any]:
+    """A detached copy of a dict (or module dict) of tensors, nested dicts
+    included: a snapshot that later in-place updates do not reach."""
+    return {k: copy_tree(v) if isinstance(v, (dict, torch.nn.Module)) else v.detach().clone()
+            for k, v in tree.items()}
+
+
+def batch_iter(images: np.ndarray, labels: np.ndarray, batch_size: int,
+               device) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Padded batches (uint8) for task-boundary passes, on ``device``; yields
+    (images, labels, weight), the padding weighing 0."""
+    n = len(labels)
+    for lo in range(0, n, batch_size):
+        chunk_im = images[lo: lo + batch_size]
+        chunk_lb = labels[lo: lo + batch_size]
+        pad = batch_size - len(chunk_lb)
+        w = np.ones(batch_size, np.float32)
+        if pad:
+            chunk_im = np.concatenate([chunk_im, np.repeat(chunk_im[-1:], pad, 0)])
+            chunk_lb = np.concatenate([chunk_lb, np.repeat(chunk_lb[-1:], pad, 0)])
+            w[batch_size - pad:] = 0.0
+        yield (torch.from_numpy(np.ascontiguousarray(chunk_im)).to(device),
+               torch.from_numpy(chunk_lb.astype(np.int64)).to(device),
+               torch.from_numpy(w).to(device))

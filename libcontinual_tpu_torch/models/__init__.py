@@ -8,7 +8,8 @@ import torch
 
 from libcontinual_tpu_torch.registry import BACKBONES
 
-# importing the module populates the registry
+# importing the modules populates the registry
+from libcontinual_tpu_torch.models import clip as _clip  # noqa: F401
 from libcontinual_tpu_torch.models import vit as _vit  # noqa: F401
 
 

@@ -1,9 +1,13 @@
-"""Vision Transformer for the prompt family (``libcontinual_tpu/models/vit.py``).
+"""Vision Transformer for the prompt family and the CLIP towers
+(``libcontinual_tpu/models/vit.py``).
 
 What the prompt family needs: the pure self-attention block,
 ``prepend_tokens`` (prompt tokens in front of [cls; patches] at layer 0: L2P,
 DAP), ``prefix_kv`` (per-block prompt keys and values in front of each
 head's keys: DualPrompt, CODA-Prompt) and ``feature_mode="prompt_mean"``.
+What the CLIP towers add: ``attn_mask`` (the text tower's causal mask),
+QuickGELU, the ``ln_pre`` stem norm and the mixture-of-adapter-experts MLP
+(``MoEMLP``, MoE-Adapter4CL) with its per-image routing.
 
 Rounding points are the JAX package's: a residual stream in the compute
 dtype (bf16 on the card), LayerNorm statistics and arithmetic in f32 with
@@ -11,8 +15,10 @@ the result rounded to the compute dtype, the MLP's GELU in its tanh form at
 bf16 and exact erf at f32, and the final norm in f32. The linear
 projections and the patch-embed convolution are ``torch.nn.functional``
 calls, as the JAX package leaves them to XLA; attention is the packed-qkv
-kernel of :mod:`libcontinual_tpu_torch.ops.attention`, or in a block with a
-prefix the prefix-KV kernel of :mod:`libcontinual_tpu_torch.ops.prefix_attention`.
+kernel of :mod:`libcontinual_tpu_torch.ops.attention`, in a block with a
+prefix the prefix-KV kernel of :mod:`libcontinual_tpu_torch.ops.prefix_attention`,
+and with a 2-D mask the masked kernel of
+:mod:`libcontinual_tpu_torch.ops.masked_attention`.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from libcontinual_tpu_torch.ops.attention import fused_qkv_attention
+from libcontinual_tpu_torch.ops.masked_attention import fused_masked_qkv_attention
 from libcontinual_tpu_torch.ops.prefix_attention import fused_prefix_attention
 from libcontinual_tpu_torch.registry import BACKBONES
 
@@ -65,9 +72,11 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.T
 
 
 class MLP(nn.Module):
-    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16):
+    def __init__(self, dim: int, hidden: int, dtype=torch.bfloat16, act: str = "gelu"):
         super().__init__()
-        self.dtype = dtype
+        if act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"unknown activation {act!r}")
+        self.dtype, self.act = dtype, act
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
@@ -77,8 +86,12 @@ class MLP(nn.Module):
 
     def forward(self, x):
         x = dense(self.fc1, x, self.dtype)
-        # tanh GELU at bf16 (equal to erf GELU at bf16 resolution), erf at f32
-        x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
+        if self.act == "quick_gelu":
+            # OpenAI CLIP's QuickGELU, x * sigmoid(1.702 x)
+            x = x * torch.sigmoid(1.702 * x)
+        else:
+            # tanh GELU at bf16 (equal to erf GELU at bf16 resolution), erf at f32
+            x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
         return dense(self.fc2, x, self.dtype)
 
 
@@ -87,7 +100,9 @@ Prefix = Tuple[torch.Tensor, torch.Tensor]  # (pk, pv), each (B, P, D)
 
 class ViTAttention(nn.Module):
     """Packed qkv projection, the fused kernel, proj. With a prefix, the
-    prompt keys and values join each head's keys (``fused_prefix_attention``)."""
+    prompt keys and values join each head's keys (``fused_prefix_attention``);
+    with a 2-D additive mask, the mask is added to every head's scores
+    (``fused_masked_qkv_attention``)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.bfloat16):
         super().__init__()
@@ -101,10 +116,17 @@ class ViTAttention(nn.Module):
         _init_dense(self.qkv, gen)
         _init_dense(self.proj, gen)
 
-    def forward(self, x, prefix_kv: Optional[Prefix] = None):
+    def forward(self, x, prefix_kv: Optional[Prefix] = None,
+                attn_mask: Optional[torch.Tensor] = None):
         qkv = dense(self.qkv, x, self.dtype)
         scale = 1.0 / math.sqrt(self.dim // self.num_heads)
-        if prefix_kv is None:
+        if attn_mask is not None:
+            if prefix_kv is not None or attn_mask.dim() != 2:
+                raise NotImplementedError(
+                    "attn_mask takes a 2-D (S, S) mask and no prefix_kv in the PyTorch port"
+                )
+            o = fused_masked_qkv_attention(qkv, attn_mask, scale, self.num_heads)
+        elif prefix_kv is None:
             o = fused_qkv_attention(qkv, scale, self.num_heads)
         else:
             pk, pv = prefix_kv
@@ -118,29 +140,122 @@ class ViTAttention(nn.Module):
         return dense(self.proj, o, self.dtype)
 
 
+def top_k_gates(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Dense (B, E) gates: a softmax over each row's k largest logits,
+    scattered back, zero elsewhere. Ties go to the lower index
+    (``jax.lax.top_k``'s order; ``torch.topk`` promises none): at zero-init
+    routers every logit is 0."""
+    topi = torch.sort(logits, dim=-1, descending=True, stable=True).indices[..., :k]
+    gk = torch.softmax(logits.gather(-1, topi), dim=-1)
+    return torch.zeros_like(logits).scatter(-1, topi, gk)
+
+
+class MoEMLP(nn.Module):
+    """Mixture of bottleneck adapter experts beside the MLP (``MoEMLP`` of
+    the JAX package; MoE-Adapter4CL): each image is routed once, on its
+    ``gate_vec`` (the post-attention CLS or EOT token), to its top-k experts;
+    the experts run densely and the gates mix them. Returns the output and
+    the cv^2 load-balancing term.
+
+    Training draws are inputs: ``noise`` (B, E) standard normals for the
+    noisy gating, ``keep`` (B, S, E, bottleneck) booleans for the experts'
+    dropout (kept with probability 1 - ``dropout_rate``). Without them the
+    gating is clean and nothing is dropped, as in evaluation."""
+
+    def __init__(self, dim: int, num_experts: int = 4, top_k: int = 2, bottleneck: int = 64,
+                 scale: float = 0.1, dropout_rate: float = 0.1, dtype=torch.bfloat16):
+        super().__init__()
+        self.num_experts, self.top_k, self.bottleneck = num_experts, top_k, bottleneck
+        self.scale, self.dropout_rate, self.dtype = scale, dropout_rate, dtype
+        e, k = num_experts, bottleneck
+        self.w_gate = nn.Parameter(torch.zeros(dim, e))
+        self.w_noise = nn.Parameter(torch.zeros(dim, e))
+        self.down = nn.Parameter(torch.zeros(e, dim, k))
+        self.down_b = nn.Parameter(torch.zeros(e, k))
+        self.up = nn.Parameter(torch.zeros(e, k, dim))
+        self.up_b = nn.Parameter(torch.zeros(e, dim))
+
+    def reset_parameters(self, gen=None) -> None:
+        """flax ``kaiming_uniform`` on ``down`` (fan-in dim x experts: flax
+        counts the expert axis as a receptive field); zeros elsewhere."""
+        bound = math.sqrt(6.0 / (self.down.shape[0] * self.down.shape[1]))
+        with torch.no_grad():
+            for p in (self.w_gate, self.w_noise, self.down_b, self.up, self.up_b):
+                p.zero_()
+            self.down.uniform_(-bound, bound, generator=gen)
+
+    def draws(self, x: torch.Tensor, gen: torch.Generator):
+        """Noise and dropout keep-mask for one forward on ``x``, from ``gen``."""
+        b, s, _ = x.shape
+        noise = torch.randn((b, self.num_experts), generator=gen, device=x.device)
+        u = torch.rand((b, s, self.num_experts, self.bottleneck), generator=gen, device=x.device)
+        return noise, u < 1.0 - self.dropout_rate
+
+    def forward(self, x, gate_vec: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None):
+        dt = self.dtype
+        gx = gate_vec.float()
+        logits = gx @ self.w_gate
+        if noise is not None:
+            noise_std = F.softplus(gx @ self.w_noise) + 1e-2
+            logits = logits + noise * noise_std
+        gates = top_k_gates(logits, min(self.top_k, self.num_experts))  # (B, E)
+        h = torch.einsum("bsd,edk->bsek", x.to(dt), self.down.to(dt))
+        h = torch.relu(h + self.down_b.to(dt)[None, None])
+        if keep is not None and self.dropout_rate > 0.0:
+            h = torch.where(keep, h / (1.0 - self.dropout_rate), 0.0).to(dt)
+        y = torch.einsum("bsek,ekd->bsed", h, self.up.to(dt))
+        y = (y + self.up_b.to(dt)[None, None]) * self.scale
+        out = torch.einsum("be,bsed->bsd", gates.to(dt), y)
+        importance = gates.sum(dim=0)
+        cv2 = importance.var(correction=0) / (importance.mean() ** 2 + 1e-10)
+        return out, cv2
+
+
 class ViTBlock(nn.Module):
-    def __init__(self, dim, num_heads, mlp_ratio=4.0, dtype=torch.bfloat16, ln_eps=1e-6):
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, dtype=torch.bfloat16, ln_eps=1e-6,
+                 act: str = "gelu", moe_experts: int = 0, moe_top_k: int = 2):
         super().__init__()
         self.dtype = dtype
         self.ln_1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = ViTAttention(dim, num_heads, dtype)
         self.ln_2 = nn.LayerNorm(dim, eps=ln_eps)
-        self.mlp = MLP(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = MLP(dim, int(dim * mlp_ratio), dtype, act)
+        self.moe = MoEMLP(dim, moe_experts, moe_top_k, dtype=dtype) if moe_experts > 0 else None
 
     def reset_parameters(self, gen=None) -> None:
         self.ln_1.reset_parameters()
         self.ln_2.reset_parameters()
         self.attn.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
+        if self.moe is not None:
+            self.moe.reset_parameters(gen)
 
-    def forward(self, x, prefix_kv: Optional[Prefix] = None):
-        x = x + self.attn(layer_norm(self.ln_1, x, self.dtype), prefix_kv)
-        return x + self.mlp(layer_norm(self.ln_2, x, self.dtype))
+    def forward(self, x, prefix_kv: Optional[Prefix] = None,
+                attn_mask: Optional[torch.Tensor] = None,
+                gate_pos: Optional[torch.Tensor] = None, gate_index: int = 0,
+                moe_gen: Optional[torch.Generator] = None):
+        """With MoE experts, returns ``(x, moe_aux)``. The experts route on
+        the post-attention residual at ``gate_pos[b]`` (per image) or else
+        at ``gate_index``; ``moe_gen`` draws their gate noise and dropout
+        (none without it)."""
+        x = x + self.attn(layer_norm(self.ln_1, x, self.dtype), prefix_kv, attn_mask)
+        y = self.mlp(layer_norm(self.ln_2, x, self.dtype))
+        if self.moe is None:
+            return x + y
+        if gate_pos is not None:
+            gvec = x[torch.arange(x.shape[0], device=x.device), gate_pos]
+        else:
+            gvec = x[:, gate_index, :]
+        draws = self.moe.draws(x, moe_gen) if moe_gen is not None else (None, None)
+        moe_out, aux = self.moe(x, gvec, *draws)
+        return x + (y + moe_out), aux
 
 
 class VisionTransformer(nn.Module):
     """ViT-B/16 by default; ``forward`` takes float NHWC images and returns
-    ``{"features", "tokens"}`` in f32."""
+    ``{"features", "tokens"}`` in f32, and ``"moe_aux"`` with MoE experts.
+    ``ln_pre`` and ``act="quick_gelu"`` make the CLIP visual tower."""
 
     def __init__(
         self,
@@ -154,16 +269,25 @@ class VisionTransformer(nn.Module):
         block_ln_eps: float = 1e-6,
         final_ln_eps: float = 1e-6,
         generator: Optional[torch.Generator] = None,
+        ln_pre: bool = False,
+        act: str = "gelu",
+        moe_experts: int = 0,
+        moe_top_k: int = 2,
     ):
         super().__init__()
         self.patch_size, self.embed_dim = patch_size, embed_dim
         self.dtype = dtype
+        self.moe_experts = moe_experts
         n_patches = (img_size // patch_size) ** 2
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, embed_dim))
+        # OpenAI CLIP normalises the embedded sequence before the blocks
+        self.ln_pre = nn.LayerNorm(embed_dim, eps=1e-5) if ln_pre else None
         self.blocks = nn.ModuleList(
-            ViTBlock(embed_dim, num_heads, mlp_ratio, dtype, block_ln_eps) for _ in range(depth)
+            ViTBlock(embed_dim, num_heads, mlp_ratio, dtype, block_ln_eps, act,
+                     moe_experts, moe_top_k)
+            for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=final_ln_eps)
         self.reset_parameters(generator)
@@ -174,6 +298,8 @@ class VisionTransformer(nn.Module):
             self.patch_embed.bias.zero_()
             trunc_normal_02_(self.cls_token, gen)
             trunc_normal_02_(self.pos_embed, gen)
+        if self.ln_pre is not None:
+            self.ln_pre.reset_parameters()
         for blk in self.blocks:
             blk.reset_parameters(gen)
         self.norm.reset_parameters()
@@ -184,8 +310,10 @@ class VisionTransformer(nn.Module):
         prepend_tokens: Optional[torch.Tensor] = None,
         feature_mode: str = "cls",
         prefix_kv: Optional[Dict[int, Prefix]] = None,
+        moe_gen: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """``prefix_kv[i]``, where present, is block i's prompt (pk, pv)."""
+        """``prefix_kv[i]``, where present, is block i's prompt (pk, pv);
+        ``moe_gen`` draws the MoE experts' training noise and dropout."""
         dt = self.dtype
         b = x.shape[0]
         pe = self.patch_embed
@@ -196,18 +324,30 @@ class VisionTransformer(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # (B, patches, D), row-major patch order
         cls = self.cls_token.to(dt).expand(b, 1, self.embed_dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        if self.ln_pre is not None:
+            x = layer_norm(self.ln_pre, x, dt)
         n_prompt = 0
         if prepend_tokens is not None:
             n_prompt = prepend_tokens.shape[1]
             x = torch.cat([prepend_tokens.to(dt), x], dim=1)
+        moe_aux = 0.0
         for i, blk in enumerate(self.blocks):
-            x = blk(x, prefix_kv.get(i) if prefix_kv else None)
+            pkv = prefix_kv.get(i) if prefix_kv else None
+            if self.moe_experts > 0:
+                # the CLS token sits after any prepended prompts
+                x, aux = blk(x, pkv, gate_index=n_prompt, moe_gen=moe_gen)
+                moe_aux = moe_aux + aux
+            else:
+                x = blk(x, pkv)
         x = layer_norm(self.norm, x, torch.float32)
         if feature_mode == "prompt_mean" and n_prompt > 0:
             feats = x[:, :n_prompt].mean(dim=1)
         else:
             feats = x[:, n_prompt, :]
-        return {"features": feats, "tokens": x}
+        out = {"features": feats, "tokens": x}
+        if self.moe_experts > 0:
+            out["moe_aux"] = moe_aux
+        return out
 
 
 @BACKBONES.register(

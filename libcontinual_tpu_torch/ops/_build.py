@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into a shared
+``csrc/attention.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The library is built
 at its first use (never at import), into ``build/libcontinual_tpu_torch/``
 under the repository root, and its file name carries a hash of the source,
 of every shared header in ``csrc/`` (``*.cuh``) and of the flags, so an edited
-source or header is rebuilt and an unchanged one is reused. Two libraries may
-build at once, each under its own lock.
+source or header is rebuilt and an unchanged one is reused. :func:`lib` gives
+the library with the argument types of every exported function set.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,10 +29,24 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LIBRARY = "attention"
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCKS: Dict[str, threading.Lock] = {}
-_LOCKS_LOCK = threading.Lock()
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+#: argument types of every function ``attention.cu`` exports; all return an int
+SIGNATURES = {
+    "lct_qkv_max_seq": [],
+    "lct_qkv_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "lct_qkv_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "lct_pqkv_max_keys": [],
+    "lct_pqkv_fwd": [_P, _P, _P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lct_pqkv_bwd": [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "lct_mqkv_max_seq": [],
+    "lct_mqkv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "lct_mqkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -45,7 +59,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> str:
+def library_path(name: str = LIBRARY) -> str:
     h = hashlib.sha256()
     for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
         glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
@@ -70,19 +84,20 @@ def _compile(name: str, out: str) -> str:
     return proc.stderr  # -Xptxas -v: registers, shared memory and spills
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``csrc/<name>.cu``, built first if needed."""
-    with _LOCKS_LOCK:
-        lock = _LOCKS.setdefault(name, threading.Lock())
-    with lock:
-        lib = _LIBS.get(name)
-        if lib is not None:
-            return lib
-        out = library_path(name)
-        if not os.path.exists(out):
-            log = _compile(name, out)
-            with open(out + ".ptxas.txt", "w") as f:
-                f.write(log)
-        lib = ctypes.CDLL(out)
-        _LIBS[name] = lib
-        return lib
+def lib() -> ctypes.CDLL:
+    """The attention library, built first if needed, its functions typed by
+    :data:`SIGNATURES`."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            out = library_path()
+            if not os.path.exists(out):
+                log = _compile(LIBRARY, out)
+                with open(out + ".ptxas.txt", "w") as f:
+                    f.write(log)
+            loaded = ctypes.CDLL(out)
+            for fn, argtypes in SIGNATURES.items():
+                getattr(loaded, fn).argtypes = argtypes
+                getattr(loaded, fn).restype = ctypes.c_int
+            _LIB = loaded
+        return _LIB

@@ -3,7 +3,7 @@
 Counterpart of ``fused_qkv_attention`` in ``libcontinual_tpu/ops/attention.py``:
 ``(B, S, 3D)`` qkv laid out as ``[q | k | v]`` -> ``(B, S, D)``, with the
 head split done inside the kernel. On a CUDA tensor the forward and backward
-are the hand-written kernels of ``csrc/qkv_attention.cu``; on a CPU tensor
+are the hand-written kernels of ``csrc/attention.cu``; on a CPU tensor
 they are the plain PyTorch versions below, which keep the TPU kernel bodies'
 rounding points (P cast to the input dtype before ``P . v``; at bf16, dS cast
 before the dq/dk products). Any other device raises.
@@ -80,17 +80,7 @@ def qkv_attention_bwd_plain(
 def _lib() -> ctypes.CDLL:
     from libcontinual_tpu_torch.ops import _build
 
-    lib = _build.load("qkv_attention")
-    if not getattr(lib, "_lct_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lct_qkv_fwd.argtypes = [p, p, i, i, i, i, i, f, p]
-        lib.lct_qkv_fwd.restype = i
-        lib.lct_qkv_bwd.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
-        lib.lct_qkv_bwd.restype = i
-        lib.lct_qkv_max_seq.argtypes = []
-        lib.lct_qkv_max_seq.restype = i
-        lib._lct_typed = True
-    return lib
+    return _build.lib()
 
 
 def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:

@@ -1,10 +1,10 @@
-// Self-attention off the packed (B, S, 3D) qkv tensor, with an optional
-// prefix of P extra key/value rows per image, for Hopper (sm_90a).
-//
-// Shared by two libraries, each with its own plain C interface:
-//   * qkv_attention.cu     P = 0: _qkv_kernel / _qkv_bwd_kernel
-//   * prefix_attention.cu  P > 0: _pqkv_kernel / _pqkv_bwd_kernel
-// (all four in libcontinual_tpu/ops/attention.py).
+// Self-attention off the packed (B, S, 3D) qkv tensor for Hopper (sm_90a),
+// in three compile-time modes (Mode below), all exported by attention.cu:
+//   * kPlain   no extra input:           _qkv_kernel  / _qkv_bwd_kernel
+//   * kPrefix  P prompt key/value rows:  _pqkv_kernel / _pqkv_bwd_kernel
+//   * kMasked  a shared (S, S) f32 additive mask on the scores:
+//                                        _mqkv_kernel / _mqkv_bwd_kernel
+// (all six in libcontinual_tpu/ops/attention.py).
 //
 // Keys and values. One head sees N = P + S keys. Key j < P is row j of the
 // prefix tensors pk / pv, (B, P, D) with row stride D and a batch stride of
@@ -16,8 +16,14 @@
 // One softmax runs over all N keys: one max and one denominator over the
 // prefix and the sequence scores together.
 //
+// Masked mode (the CLIP text tower's causal mask). The mask is a (S, S) f32
+// tensor with row stride S, shared by every image and head, read straight
+// from global memory (L2-resident: 24 KB at S 77) where a score is formed and
+// added to it. It gets no gradient. A -1e30 entry gives exactly 0 after
+// expf(s - max); padded keys (j >= S) read no mask and stay zero.
+//
 // Rounding points are those of the TPU kernel bodies:
-//   forward:  s = (q . k^T in f32) * scale; P = softmax(s) in f32, rounded to
+//   forward:  s = (q . k^T in f32) * scale [+ mask]; P = softmax(s) in f32, rounded to
 //             the input type before P . v; f32 accumulation; output rounded once.
 //   backward: P recomputed in f32; dP = g . v^T; c = rowsum(dP * P);
 //             dv = round(P)^T . g; dS = round(P * (dP - c)); dq = dS . k * scale;
@@ -38,13 +44,16 @@
 // shared-memory reads per FMA to 3/4. wgmma on bf16 tiles fed by TMA is the
 // next step for speed.
 //
-// Whether there is a prefix is a template flag (PREFIX), so the P = 0
-// instantiations of qkv_attention.cu compile without the prefix branches.
+// The mode is a template argument, so each instantiation compiles without the
+// other modes' branches.
 //
 // Determinism: every sum runs in a fixed order (no atomics). The backward
 // splits into a per-query-tile kernel (dq, plus the row statistics) and a
 // per-key-tile kernel (dk, dv, or dpk, dpv for prefix keys) that replays the
-// same score and dP arithmetic, so both see bit-identical P and dS.
+// same score and dP arithmetic, so both see bit-identical P and dS. Both form
+// a score as __fadd_rn(__fmul_rn(q . k, scale), mask): the explicit roundings
+// forbid the compiler to fuse the scale and the mask into an fma in one
+// kernel and not in the other.
 
 #pragma once
 
@@ -58,6 +67,8 @@ constexpr int kThreads = 256;  // 16 x 16 thread grid over every product tile
 constexpr int kQT = 32;        // query rows per tile
 constexpr int kKT = 64;        // key columns per tile
 constexpr int kMaxKeys = 256;  // K and V of one head (P + S rows) in shared memory
+
+enum Mode : int { kPlain = 0, kPrefix = 1, kMasked = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -136,10 +147,13 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
 }
 
 // out[i][j] = (X[i] . Y[j]) * scale for a kQT-row tile X against Np rows of Y
-// (both ld-strided, hd deep), in chunks of kKT columns.
+// (both ld-strided, hd deep), in chunks of kKT columns. With MASK,
+// mask[i * mask_ld + j] is added for i < rows and j < cols.
+template <bool MASK>
 __device__ __forceinline__ void scaled_products(const float* X, const float* Y, float* out,
-                                                int ld, int ldo, int Np, int hd,
-                                                float scale) {
+                                                int ld, int ldo, int Np, int hd, float scale,
+                                                const float* mask, int mask_ld, int rows,
+                                                int cols) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int i0 = ty * 2;
   for (int c0 = 0; c0 < Np; c0 += kKT) {
@@ -150,7 +164,12 @@ __device__ __forceinline__ void scaled_products(const float* X, const float* Y, 
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) out[(i0 + r) * ldo + j0 + c] = __fmul_rn(acc[r][c], scale);
+      for (int c = 0; c < 4; ++c) {
+        float v = __fmul_rn(acc[r][c], scale);
+        const int i = i0 + r, j = j0 + c;
+        if (MASK && i < rows && j < cols) v = __fadd_rn(v, mask[(int64_t)i * mask_ld + j]);
+        out[i * ldo + j] = v;
+      }
   }
 }
 
@@ -182,11 +201,12 @@ __device__ __forceinline__ void row_stats(const float* s, int N, float* m_out, f
 // ---------------------------------------------------------------- forward
 
 // One block per (query tile, head, image).
-template <typename T, int HD, bool PREFIX>
+template <typename T, int HD, int MODE>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ pk, const T* __restrict__ pv,
-                int64_t pk_bstride, int64_t pv_bstride, T* __restrict__ out, int S, int P,
-                int H, float scale) {
+                int64_t pk_bstride, int64_t pv_bstride, const float* __restrict__ mask,
+                T* __restrict__ out, int S, int P, int H, float scale) {
+  constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
   constexpr int LD = HD + 1;  // odd stride: neighbouring rows fall in other banks
   constexpr int TN = HD / 16;
   P = PREFIX ? P : 0;  // a compile-time 0 without a prefix
@@ -205,7 +225,8 @@ attn_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ pk, const T* __
   load_keys<PREFIX>(Ks, LD, pkb, base + D, 0, Np, P, S, D, HD);
   load_keys<PREFIX>(Vs, LD, pvb, base + 2 * D, 0, Np, P, S, D, HD);
   __syncthreads();
-  scaled_products(Qs, Ks, Ps, LD, LDP, Np, HD, scale);
+  scaled_products<MASK>(Qs, Ks, Ps, LD, LDP, Np, HD, scale,
+                        MASK ? mask + (int64_t)q0 * S : nullptr, S, S - q0, S);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -239,12 +260,14 @@ attn_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ pk, const T* __
 // One block per (query tile, head, image): recompute P over full rows of N
 // keys, form dS, write dq, and store the row statistics (max, sum,
 // rowsum(dP * P)) that the key-tile kernel needs to rebuild the same P and dS.
-template <typename T, int HD, bool PREFIX>
+template <typename T, int HD, int MODE>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
                    const T* __restrict__ pv, int64_t pk_bstride, int64_t pv_bstride,
-                   const T* __restrict__ g, T* __restrict__ dqkv, float* __restrict__ stats,
-                   int S, int P, int H, float scale) {
+                   const float* __restrict__ mask, const T* __restrict__ g,
+                   T* __restrict__ dqkv, float* __restrict__ stats, int S, int P, int H,
+                   float scale) {
+  constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
   constexpr int LD = HD + 1;
   constexpr int TN = HD / 16;
   P = PREFIX ? P : 0;  // a compile-time 0 without a prefix
@@ -266,8 +289,9 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
   load_keys<PREFIX>(Ks, LD, pkb, base + D, 0, Np, P, S, D, HD);
   load_keys<PREFIX>(Vs, LD, pvb, base + 2 * D, 0, Np, P, S, D, HD);
   __syncthreads();
-  scaled_products(Qs, Ks, Ss, LD, LDP, Np, HD, scale);
-  scaled_products(Gs, Vs, dS, LD, LDP, Np, HD, 1.f);
+  scaled_products<MASK>(Qs, Ks, Ss, LD, LDP, Np, HD, scale,
+                        MASK ? mask + (int64_t)q0 * S : nullptr, S, S - q0, S);
+  scaled_products<false>(Gs, Vs, dS, LD, LDP, Np, HD, 1.f, nullptr, 0, 0, 0);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -315,13 +339,14 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
 // statistics, and accumulate dv = round(P)^T . g and dk = dS^T . q in
 // registers. A prefix key's dk and dv go to dpk and dpv ((B, P, D),
 // contiguous), a sequence key's into the packed dqkv.
-template <typename T, int HD, bool PREFIX>
+template <typename T, int HD, int MODE>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
                      const T* __restrict__ pv, int64_t pk_bstride, int64_t pv_bstride,
-                     const T* __restrict__ g, T* __restrict__ dqkv, T* __restrict__ dpk,
-                     T* __restrict__ dpv, const float* __restrict__ stats, int S, int P,
-                     int H, float scale) {
+                     const float* __restrict__ mask, const T* __restrict__ g,
+                     T* __restrict__ dqkv, T* __restrict__ dpk, T* __restrict__ dpv,
+                     const float* __restrict__ stats, int S, int P, int H, float scale) {
+  constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
   constexpr int LD = HD + 1;
   constexpr int TN = HD / 16;
   constexpr int LDK = kKT + 1;
@@ -375,9 +400,12 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = j0 + c;
-          // __fmul_rn: never fused into the subtraction, so s is the value the
-          // dq kernel stored
-          float p = expf(__fmul_rn(s[r][c], scale) - st[i]) / st[kQT + i];
+          // __fmul_rn / __fadd_rn: never fused, so sv is the score the dq
+          // kernel stored
+          float sv = __fmul_rn(s[r][c], scale);
+          if (MASK && row_ok && k0 + j < N)
+            sv = __fadd_rn(sv, mask[(int64_t)(q0 + i) * S + k0 + j]);
+          float p = expf(sv - st[i]) / st[kQT + i];
           if (!row_ok || k0 + j >= N) p = 0.f;
           Pb[i * LDK + j] = round_to<T>(p);
           dS[i * LDK + j] = round_to<T>(p * (dp[r][c] - st[2 * kQT + i]));
@@ -436,59 +464,68 @@ inline bool supported(int B, int S, int P, int H, int hd, int dtype) {
          H <= 65535 && (hd == 16 || hd == 32 || hd == 64) && (dtype == 0 || dtype == 1);
 }
 
-template <typename T, int HD, bool PREFIX>
+template <typename T, int HD, int MODE>
 cudaError_t launch_fwd(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
-                       int64_t pv_bstride, void* out, int B, int S, int P, int H, float scale,
-                       cudaStream_t stream) {
+                       int64_t pv_bstride, const float* mask, void* out, int B, int S, int P,
+                       int H, float scale, cudaStream_t stream) {
   const size_t smem = fwd_smem(P + S, HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, HD, PREFIX>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, HD, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kQT - 1) / kQT, H, B);
-  attn_fwd_kernel<T, HD, PREFIX><<<grid, kThreads, smem, stream>>>(
+  attn_fwd_kernel<T, HD, MODE><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(pk), static_cast<const T*>(pv),
-      pk_bstride, pv_bstride, static_cast<T*>(out), S, P, H, scale);
+      pk_bstride, pv_bstride, mask, static_cast<T*>(out), S, P, H, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool PREFIX>
+template <typename T, int HD, int MODE>
 cudaError_t launch_bwd(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
-                       int64_t pv_bstride, const void* g, void* dqkv, void* dpk, void* dpv,
-                       void* stats, int B, int S, int P, int H, float scale,
-                       cudaStream_t stream) {
+                       int64_t pv_bstride, const float* mask, const void* g, void* dqkv,
+                       void* dpk, void* dpv, void* stats, int B, int S, int P, int H,
+                       float scale, cudaStream_t stream) {
   const size_t smem1 = bwd_dq_smem(P + S, HD), smem2 = bwd_dkdv_smem(HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, HD, PREFIX>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, HD, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, HD, PREFIX>,
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, HD, MODE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return err;
   const T* pk_ = static_cast<const T*>(pk);
   const T* pv_ = static_cast<const T*>(pv);
   dim3 grid1((S + kQT - 1) / kQT, H, B);
-  attn_bwd_dq_kernel<T, HD, PREFIX><<<grid1, kThreads, smem1, stream>>>(
-      static_cast<const T*>(qkv), pk_, pv_, pk_bstride, pv_bstride, static_cast<const T*>(g),
-      static_cast<T*>(dqkv), static_cast<float*>(stats), S, P, H, scale);
+  attn_bwd_dq_kernel<T, HD, MODE><<<grid1, kThreads, smem1, stream>>>(
+      static_cast<const T*>(qkv), pk_, pv_, pk_bstride, pv_bstride, mask,
+      static_cast<const T*>(g), static_cast<T*>(dqkv), static_cast<float*>(stats), S, P, H,
+      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid2((P + S + kKT - 1) / kKT, H, B);
-  attn_bwd_dkdv_kernel<T, HD, PREFIX><<<grid2, kThreads, smem2, stream>>>(
-      static_cast<const T*>(qkv), pk_, pv_, pk_bstride, pv_bstride, static_cast<const T*>(g),
-      static_cast<T*>(dqkv), static_cast<T*>(dpk), static_cast<T*>(dpv),
-      static_cast<const float*>(stats), S, P, H, scale);
+  attn_bwd_dkdv_kernel<T, HD, MODE><<<grid2, kThreads, smem2, stream>>>(
+      static_cast<const T*>(qkv), pk_, pv_, pk_bstride, pv_bstride, mask,
+      static_cast<const T*>(g), static_cast<T*>(dqkv), static_cast<T*>(dpk),
+      static_cast<T*>(dpv), static_cast<const float*>(stats), S, P, H, scale);
   return cudaGetLastError();
 }
 
+// Whether the mode's extra inputs are there: kPrefix needs P >= 1 (others
+// P == 0), kMasked a mask (others none).
+template <int MODE>
+bool mode_inputs_ok(int P, const float* mask) {
+  return (P > 0) == (MODE == kPrefix) && (mask != nullptr) == (MODE == kMasked);
+}
+
 // Forward and backward for any supported (dtype, hd); a cudaError_t, 0 on
-// success. PREFIX needs P >= 1, no PREFIX P == 0. stats: float32 scratch of
-// 3 * B * H * S elements, written then read.
-template <bool PREFIX>
+// success. stats: float32 scratch of 3 * B * H * S elements, written then read.
+template <int MODE>
 cudaError_t attn_fwd(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
-                            int64_t pv_bstride, void* out, int B, int S, int P, int H, int hd,
-                            int dtype, float scale, cudaStream_t st) {
-  if (!supported(B, S, P, H, hd, dtype) || (P > 0) != PREFIX) return cudaErrorInvalidValue;
-#define LCT_FWD(T, HD) \
-  return launch_fwd<T, HD, PREFIX>(qkv, pk, pv, pk_bstride, pv_bstride, out, B, S, P, H, scale, st)
+                     int64_t pv_bstride, const float* mask, void* out, int B, int S, int P,
+                     int H, int hd, int dtype, float scale, cudaStream_t st) {
+  if (!supported(B, S, P, H, hd, dtype) || !mode_inputs_ok<MODE>(P, mask))
+    return cudaErrorInvalidValue;
+#define LCT_FWD(T, HD)                                                                       \
+  return launch_fwd<T, HD, MODE>(qkv, pk, pv, pk_bstride, pv_bstride, mask, out, B, S, P, H, \
+                                 scale, st)
   if (dtype == 0) {
     if (hd == 16) LCT_FWD(float, 16);
     if (hd == 32) LCT_FWD(float, 32);
@@ -500,15 +537,16 @@ cudaError_t attn_fwd(const void* qkv, const void* pk, const void* pv, int64_t pk
 #undef LCT_FWD
 }
 
-template <bool PREFIX>
+template <int MODE>
 cudaError_t attn_bwd(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
-                            int64_t pv_bstride, const void* g, void* dqkv, void* dpk, void* dpv,
-                            void* stats, int B, int S, int P, int H, int hd, int dtype,
-                            float scale, cudaStream_t st) {
-  if (!supported(B, S, P, H, hd, dtype) || (P > 0) != PREFIX) return cudaErrorInvalidValue;
-#define LCT_BWD(T, HD)                                                                    \
-  return launch_bwd<T, HD, PREFIX>(qkv, pk, pv, pk_bstride, pv_bstride, g, dqkv, dpk, dpv, stats, \
-                           B, S, P, H, scale, st)
+                     int64_t pv_bstride, const float* mask, const void* g, void* dqkv,
+                     void* dpk, void* dpv, void* stats, int B, int S, int P, int H, int hd,
+                     int dtype, float scale, cudaStream_t st) {
+  if (!supported(B, S, P, H, hd, dtype) || !mode_inputs_ok<MODE>(P, mask))
+    return cudaErrorInvalidValue;
+#define LCT_BWD(T, HD)                                                                     \
+  return launch_bwd<T, HD, MODE>(qkv, pk, pv, pk_bstride, pv_bstride, mask, g, dqkv, dpk, \
+                                 dpv, stats, B, S, P, H, scale, st)
   if (dtype == 0) {
     if (hd == 16) LCT_BWD(float, 16);
     if (hd == 32) LCT_BWD(float, 32);

@@ -5,7 +5,7 @@ Counterpart of ``fused_prefix_attention`` in
 ``[q | k | v]`` and per-image prompt keys and values ``pk``, ``pv`` of shape
 ``(B, P, D)`` -> ``(B, S, D)``. Each query attends to the P prompt rows and
 the S sequence rows under one softmax. On a CUDA tensor the forward and
-backward are the hand-written kernels of ``csrc/prefix_attention.cu``; on a
+backward are the hand-written kernels of ``csrc/attention.cu``; on a
 CPU tensor they are the plain PyTorch versions below, which keep the TPU
 kernel bodies' rounding points: two score blocks with one max and one
 denominator, the probabilities cast to the input dtype before the ``. pv``
@@ -19,7 +19,6 @@ contiguous. Their gradients are always per image, ``(B, P, D)``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -27,6 +26,7 @@ import torch
 from libcontinual_tpu_torch.ops.attention import (
     _DTYPES,
     _check_packed,
+    _lib,
     _raise_on,
     _route,
     _split_heads,
@@ -103,22 +103,6 @@ def prefix_attention_bwd_plain(
 
 
 # ------------------------------------------------------------------ kernels
-
-
-def _lib() -> ctypes.CDLL:
-    from libcontinual_tpu_torch.ops import _build
-
-    lib = _build.load("prefix_attention")
-    if not getattr(lib, "_lct_typed", False):
-        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.lct_pqkv_fwd.argtypes = [p, p, p, ll, ll, p, i, i, i, i, i, i, f, p]
-        lib.lct_pqkv_fwd.restype = i
-        lib.lct_pqkv_bwd.argtypes = [p, p, p, ll, ll, p, p, p, p, p, i, i, i, i, i, i, f, p]
-        lib.lct_pqkv_bwd.restype = i
-        lib.lct_pqkv_max_keys.argtypes = []
-        lib.lct_pqkv_max_keys.restype = i
-        lib._lct_typed = True
-    return lib
 
 
 def _prefix_rows(t: torch.Tensor, like: torch.Tensor, b: int, d: int, name: str) -> torch.Tensor:

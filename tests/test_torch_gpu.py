@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from libcontinual_tpu_torch.ops import attention as T
+from libcontinual_tpu_torch.ops import masked_attention as MT
 from libcontinual_tpu_torch.ops import prefix_attention as PT
 
 pytestmark = pytest.mark.gpu
@@ -119,3 +120,68 @@ def test_prefix_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         PT.prefix_attention_cuda(qkv[:, :8], pk.bfloat16(), pk.bfloat16(), 0.25, 4)
     with pytest.raises(ValueError, match="head dim"):
         PT.prefix_attention_cuda(qkv[:, :8], pk, pk, 0.25, 3)
+
+
+def _masked_inputs(cuda, shape, dtype, kind):
+    b, s, h, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(b, s, 3 * h * hd, device=cuda, generator=g).to(dtype)
+    go = torch.randn(b, s, h * hd, device=cuda, generator=g).to(dtype)
+    if kind == "causal":
+        mask = torch.triu(torch.full((s, s), -1e30, device=cuda), diagonal=1)
+    else:  # a general finite mask
+        mask = 3.0 * torch.randn(s, s, device=cuda, generator=g)
+    return qkv, mask, go
+
+
+@pytest.mark.parametrize("kind", ["causal", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 77, 8, 64), (2, 70, 2, 32)])
+def test_masked_kernels_match_plain(cuda, dtype, shape, kind):
+    qkv, mask, go = _masked_inputs(cuda, shape, dtype, kind)
+    h, hd = shape[2], shape[3]
+    scale = hd ** -0.5
+    out = MT.masked_attention_cuda(qkv, mask, scale, h)
+    dqkv = MT.masked_attention_bwd_cuda(qkv, mask, go, scale, h)
+    torch.cuda.synchronize()
+    assert _err(out, MT.masked_attention_plain(qkv, mask, scale, h)) <= TOL[dtype]
+    assert _err(dqkv, MT.masked_attention_bwd_plain(qkv, mask, go, scale, h)) <= TOL[dtype]
+
+
+def test_masked_wrappers_refuse_a_wrong_mask(cuda):
+    qkv = torch.zeros(1, 8, 192, device=cuda)
+    with pytest.raises(ValueError, match="mask"):
+        MT.masked_attention_cuda(qkv, torch.zeros(8, 7, device=cuda), 0.25, 4)
+    with pytest.raises(ValueError, match="mask"):
+        MT.masked_attention_cuda(qkv, torch.zeros(8, 8), 0.25, 4)  # on the host
+    with pytest.raises(TypeError, match="mask dtype"):
+        MT.masked_attention_cuda(qkv, torch.zeros(8, 8, device=cuda, dtype=torch.bfloat16),
+                                 0.25, 4)
+    with pytest.raises(ValueError, match="mask"):
+        MT.masked_attention_bwd_cuda(qkv, torch.zeros(1, 8, 8, device=cuda),
+                                     torch.zeros(1, 8, 64, device=cuda), 0.25, 4)
+
+
+def test_moe_adapter_step_launches_the_masked_backward_per_text_block(cuda):
+    """One MoE-Adapter4CL step on ``clip_tiny_test``: the text tower's
+    blocks 1.. need the masked backward; block 0's qkv depends on frozen
+    weights only, so it needs none."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.methods.clip_methods import MoEAdapter4CL
+
+    cfg = Config(overrides={
+        "dataset": "synthetic", "data_root": "", "image_size": 32, "task_num": 2,
+        "init_cls_num": 4, "inc_cls_num": 4, "batch_size": 8, "dtype": "bfloat16",
+        "backbone": {"name": "clip_tiny_test", "kwargs": {"moe_experts": 2, "moe_text_gate": "eot"}},
+        "classifier": {"name": "MOE_ADAPTER4CL", "kwargs": {"num_class": 8, "feat_dim": 32}},
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 1e-3}},
+    }).get_config_dict()
+    method = MoEAdapter4CL(cfg, cuda)
+    state = method.init_state(0, (32, 32, 3))
+    batch = {"image": torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=cuda),
+             "label": torch.randint(0, 4, (8,), device=cuda), "weight": torch.ones(8, device=cuda)}
+    MT.reset_launches()
+    method.train_step(state, batch, 1e-3)
+    torch.cuda.synchronize()
+    depth = len(state.params["clip"].text.blocks)
+    assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1}

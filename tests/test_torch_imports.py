@@ -26,8 +26,12 @@ MODULES = [
     "libcontinual_tpu_torch.convert",
     "libcontinual_tpu_torch.ops.attention",
     "libcontinual_tpu_torch.ops.prefix_attention",
+    "libcontinual_tpu_torch.ops.masked_attention",
     "libcontinual_tpu_torch.methods.prompt_methods",
     "libcontinual_tpu_torch.methods.dap",
+    "libcontinual_tpu_torch.methods.clip_methods",
+    "libcontinual_tpu_torch.models.clip",
+    "libcontinual_tpu_torch.models.tokenizer",
     "libcontinual_tpu_torch.data.continual",
     "libcontinual_tpu_torch.config",
 ]
@@ -84,11 +88,17 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_real_sources_share_one_header():
+    """One library, ``attention.cu``, on the shared header, exports every
+    function the wrappers type, for all three kernel families."""
     from libcontinual_tpu_torch.ops import _build
 
-    for name in ("qkv_attention", "prefix_attention"):
-        with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
-            assert '#include "attention_kernels.cuh"' in f.read()
+    assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh"]
+    with open(os.path.join(_build.CSRC_DIR, "attention.cu")) as f:
+        src = f.read()
+    assert '#include "attention_kernels.cuh"' in src
+    for fn in _build.SIGNATURES:
+        assert f'extern "C" int {fn}(' in src, fn
+    assert {fn.split("_")[1] for fn in _build.SIGNATURES} == {"qkv", "pqkv", "mqkv"}
 
 
 def test_cli_parses_overrides_without_yaml():
