@@ -7,8 +7,9 @@ Needs one CUDA card and ``nvcc``; it raises without them. Phases, each of
 which raises on failure:
 
   1. environment: torch, CUDA, the card's name and power limit;
-  2. build: the kernel library ``libcontinual_tpu_torch/ops/csrc/attention.cu``
-     (one ``nvcc``), with its ptxas report;
+  2. build: the kernel libraries ``libcontinual_tpu_torch/ops/csrc/attention.cu``
+     and ``conv.cu`` (one ``nvcc`` each, started together), with their ptxas
+     reports;
   3. kernel checks, forward and backward, against the plain PyTorch versions:
      the packed-qkv kernels at a small odd shape (f32, bf16) and at the
      slices' shapes (B 16, S 197, 202 and 222, D 768, 12 heads, bf16); the
@@ -17,7 +18,10 @@ which raises on failure:
      broadcast over the batch (batch stride 0) and with one that differs per
      image; the masked kernels at small odd shapes (S 17 and 77, f32 and
      bf16, with the causal mask and with a random finite one) and at the
-     CLIP text tower's (B 16, S 77, D 512, 8 heads, bf16, causal);
+     CLIP text tower's (B 16, S 77, D 512, 8 heads, bf16, causal); the 3x3
+     convolution kernels (y, dx through the forward kernel on the rotated
+     taps, and dw) at small odd shapes (f32, bf16, C 3 and 20, a 4 x 4 image)
+     and at resnet18's CIFAR stem and four stages at B 128 (bf16);
   4. the slices: the port's ``Trainer`` (the code behind
      ``python -m libcontinual_tpu_torch``) runs L2P, DualPrompt, CODA-Prompt
      and DAP (on a long-tailed ``imb_type: exp`` stream) on a full-width
@@ -28,14 +32,22 @@ which raises on failure:
      shapes of each run (every shape must be one that phase 3 checked); then
      one full-width batch goes through the trained L2P, DualPrompt, DAP and
      MoE-Adapter4CL states with the kernels and with the plain attention,
-     and the two agree;
-  5. timing: each kernel against its plain version and against
-     ``scaled_dot_product_attention`` (the yardstick, which the port never
-     calls) at the main path's shapes, and the L2P, DualPrompt and
-     MoE-Adapter4CL train steps at the bench geometry (batch 128, bf16,
-     32 -> 224) with the kernels and with the plain attention, plus a
-     device-time breakdown of the DualPrompt and MoE-Adapter4CL steps from
-     ``torch.profiler``.
+     and the two agree; then iCaRL on a full-width resnet18 (CIFAR stem,
+     bf16, batch 128, herding buffer 200), 2 tasks of 10 classes and 2
+     epochs, and on its trained network the inputs and output gradients of
+     its 14 stride-1 3x3 convolutions on one batch of 128 go through
+     ``conv3x3`` (the kernels), which must agree with the modules' own cuDNN
+     results (y, dx, dw);
+  5. timing: each attention kernel against its plain version and against
+     ``scaled_dot_product_attention``, and each conv kernel against its
+     plain version and cuDNN (the yardsticks, which the port never calls) at
+     the main path's shapes; the L2P, DualPrompt and MoE-Adapter4CL train
+     steps at the bench geometry (batch 128, bf16, 32 -> 224) with the
+     kernels and with the plain attention, and the iCaRL / resnet18 step
+     (batch 128, bf16, 32 px), with a device-time breakdown of the
+     DualPrompt, MoE-Adapter4CL and iCaRL steps from ``torch.profiler``;
+     and the whole 10-task iCaRL protocol of ``bench.py``'s end-to-end block
+     through the trainer: wall time and final accuracy.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -78,10 +90,32 @@ M_SMALL = [(2, 17, 64, 4), (2, 77, 64, 4)]  # (B, S, D, heads)
 M_MAIN = [(16, 77, 512, 8)]  # the CLIP text tower: context 77, width 512, 8 heads
 M_TIMED = (100, 77, 512, 8)  # MoE-Adapter4CL encodes the prompts of all 100 classes a step
 
-# the TPU kernel each CUDA kernel replaces: its body's line in
-# libcontinual_tpu/ops/attention.py
-SOURCE_LINES = {"qkv_fwd": 140, "qkv_bwd": 222, "pqkv_fwd": 348, "pqkv_bwd": 394,
-                "mqkv_fwd": 626, "mqkv_bwd": 653}
+# the 3x3 convolution (B, H, W, C, O): small odd shapes, and resnet18's CIFAR
+# stem and four stages at batch 128 (bf16), the shapes its iCaRL path gives
+C_SMALL = [((3, 5, 7, 3, 8), torch.float32), ((3, 5, 7, 3, 8), torch.bfloat16),
+           ((2, 9, 6, 20, 24), torch.float32), ((2, 9, 6, 20, 24), torch.bfloat16),
+           ((2, 4, 4, 20, 24), torch.bfloat16), ((5, 3, 3, 7, 70), torch.float32)]
+C_MAIN = [(128, 32, 32, 3, 64), (128, 32, 32, 64, 64), (128, 16, 16, 128, 128),
+          (128, 8, 8, 256, 256), (128, 4, 4, 512, 512)]
+C_TIMED = C_MAIN[1]  # the first stage: the conv kernels' numbers in the kernels line
+# the trained iCaRL network's captured batch through conv3x3 against the
+# modules' own cuDNN results: both bf16 from f32 sums in another order (dw:
+# f32 against cuDNN's bf16), relative L2
+CONV_PATH_TOL = 1e-2
+
+# the TPU kernel each CUDA kernel replaces (its body's line) and the source
+# of the CUDA kernel
+_ATTN_CU = "libcontinual_tpu_torch/ops/csrc/attention.cu"
+_CONV_CU = "libcontinual_tpu_torch/ops/csrc/conv.cu"
+SOURCE_LINES = {"qkv_fwd": "libcontinual_tpu/ops/attention.py:140",
+                "qkv_bwd": "libcontinual_tpu/ops/attention.py:222",
+                "pqkv_fwd": "libcontinual_tpu/ops/attention.py:348",
+                "pqkv_bwd": "libcontinual_tpu/ops/attention.py:394",
+                "mqkv_fwd": "libcontinual_tpu/ops/attention.py:626",
+                "mqkv_bwd": "libcontinual_tpu/ops/attention.py:653",
+                "conv3x3_fwd": "libcontinual_tpu/ops/conv.py:105",
+                "conv3x3_dw": "libcontinual_tpu/ops/conv.py:153"}
+SOURCES = {k: _CONV_CU if k.startswith("conv") else _ATTN_CU for k in SOURCE_LINES}
 
 # H100 SXM: HBM bandwidth and dense bf16 tensor-core peak (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -151,6 +185,31 @@ TRAINED = {
 }
 PREFIX_BLOCKS = 5  # DualPrompt and CODA-Prompt put prefixes on blocks 0-4
 
+_NORM = {"mean": [0.5071, 0.4865, 0.4409], "std": [0.2673, 0.2564, 0.2762]}
+# bench.py's end-to-end block (bench.py:207-235): 10-task iCaRL on resnet18,
+# synthetic CIFAR-100 geometry, 60 images a class, the cifar transform stack.
+# The synthetic source does not trigger the CIFAR stem (nor the cifar
+# transform preset), so the backbone is told its dataset, as a CIFAR-100 run
+# gets it from the config: the 3x3 stride-1 stem, stages at 32, 16, 8 and 4 px
+ICARL_CONFIG = {
+    "dataset": "synthetic", "data_root": "", "image_size": 32,
+    "task_num": 10, "init_cls_num": 10, "inc_cls_num": 10,
+    "epoch": 2, "batch_size": 128, "per_class": 60, "seed": 1993,
+    "val_per_epoch": 0, "testing_times": 1, "dtype": "bfloat16",
+    "mesh": {"data": 1, "model": 1},
+    "train_trfms": [{"RandomCrop": {"size": 32, "padding": 4}}, {"RandomHorizontalFlip": {}},
+                    {"ColorJitter": {"brightness": 63 / 255}}, {"Normalize": _NORM}],
+    "test_trfms": [{"Normalize": _NORM}],
+    "backbone": {"name": "resnet18", "kwargs": {"dataset": "cifar100"}},
+    "classifier": {"name": "ICarl", "kwargs": {
+        "num_class": 100, "feat_dim": 512, "init_cls_num": 10, "inc_cls_num": 10,
+        "task_num": 10}},
+    "buffer": {"name": "LinearHerdingBuffer", "kwargs": {"buffer_size": 200, "batch_size": 128}},
+    "optimizer": {"name": "SGD", "kwargs": {"lr": 0.05, "momentum": 0.9}},
+    "lr_scheduler": {"name": "Constant"}, "warmup": 0,
+}
+RESNET18_CIFAR_PARAMS = 11_168_832  # backbone parameters at 64-512 channels
+
 
 def _err(out: torch.Tensor, ref: torch.Tensor):
     """(max abs error, the same over max(1, max |ref|))."""
@@ -179,19 +238,28 @@ def _attention_modules():
     return A, PA, MA
 
 
+def _conv_module():
+    from libcontinual_tpu_torch.ops import conv
+
+    return conv
+
+
 def _reset_launches() -> None:
-    for mod in _attention_modules():
+    for mod in (*_attention_modules(), _conv_module()):
         mod.reset_launches()
 
 
 def _launches() -> dict:
     A, PA, MA = _attention_modules()
-    return {**A.LAUNCHES, **PA.LAUNCHES, **MA.LAUNCHES}
+    return {**A.LAUNCHES, **PA.LAUNCHES, **MA.LAUNCHES, **_conv_module().LAUNCHES}
 
 
 def _shape_key(kname, qkv, *rest):
-    """(kernel, S, [P,] D, heads, dtype) of one launch: what a check at that
-    shape covers, whatever the batch."""
+    """(kernel, S, [P,] D, heads, dtype) of one attention launch, or (kernel,
+    H, W, C, O, dtype) of one conv launch (x and the taps or the output
+    gradient): what a check at that shape covers, whatever the batch."""
+    if kname.startswith("conv"):
+        return (kname, *qkv.shape[1:], rest[0].shape[-1], qkv.dtype)
     s, d, heads = qkv.shape[1], qkv.shape[2] // 3, rest[-1]
     p = (rest[0].shape[1],) if kname.startswith("pqkv") else ()
     return (kname, s, *p, d, heads, qkv.dtype)
@@ -202,11 +270,13 @@ def _recorded_shapes(seen: set):
     """Within it, every launch of a kernel wrapper adds its ``_shape_key`` to
     ``seen``; the wrappers themselves run (and count) as before."""
     A, PA, MA = _attention_modules()
+    C = _conv_module()
     wrapped = [(A, "qkv_attention_cuda", "qkv_fwd"), (A, "qkv_attention_bwd_cuda", "qkv_bwd"),
                (PA, "prefix_attention_cuda", "pqkv_fwd"),
                (PA, "prefix_attention_bwd_cuda", "pqkv_bwd"),
                (MA, "masked_attention_cuda", "mqkv_fwd"),
-               (MA, "masked_attention_bwd_cuda", "mqkv_bwd")]
+               (MA, "masked_attention_bwd_cuda", "mqkv_bwd"),
+               (C, "conv3x3_cuda", "conv3x3_fwd"), (C, "conv3x3_dw_cuda", "conv3x3_dw")]
     saved = [getattr(mod, attr) for mod, attr, _ in wrapped]
 
     def recording(fn, kname):
@@ -234,24 +304,35 @@ def phase_build():
     from libcontinual_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.lib()  # the one library: one nvcc
-    print(f"[build] {_build.LIBRARY}.cu built and loaded in {time.perf_counter() - t0:.1f} s")
-    log_path = _build.library_path() + ".ptxas.txt"
-    with open(log_path) as f:
-        log = f.read()
-    regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
-    print(f"[build] ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers a "
-          f"thread, at most {max(spills, default=0)} bytes of spill stores ({log_path})")
-    # one line per kernel (family, kernel, type, head dim): registers, spills
-    for chunk in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
-        nreg = re.search(r"Used (\d+) registers", chunk)
-        spill = re.search(r"(\d+) bytes spill stores", chunk)
-        if name and nreg and spill:
-            kind, typ, hd, mode = name.groups()
-            print(f"[build]   {_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} "
-                  f"hd {hd:2s}: {nreg.group(1)} registers, {spill.group(1)} bytes spill stores")
+    _build.build()  # every library: one nvcc each, all started together
+    print(f"[build] {', '.join(n + '.cu' for n in _build.LIBRARIES)} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for lib_name in _build.LIBRARIES:
+        log_path = _build.library_path(lib_name) + ".ptxas.txt"
+        with open(log_path) as f:
+            log = f.read()
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"[build] ptxas {lib_name}: {len(regs)} kernels, at most {max(regs, default=0)} "
+              f"registers a thread, at most {max(spills, default=0)} bytes of spill stores "
+              f"({log_path})")
+        # one line per kernel (family, kernel, type, head dim): registers, spills
+        for chunk in log.split("Compiling entry function")[1:]:
+            nreg = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            attn = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
+            conv = re.search(r"(conv3x3_\w+?_kernel)(I(f|13__nv_bfloat16)E)?", chunk)
+            if not (nreg and spill):
+                continue
+            if attn:
+                kind, typ, hd, mode = attn.groups()
+                label = f"{_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} hd {hd:2s}"
+            elif conv:
+                typ = conv.group(3)
+                label = f"conv  {conv.group(1):25s} {'' if typ is None else 'f32' if typ == 'f' else 'bf16'}"
+            else:
+                continue
+            print(f"[build]   {label}: {nreg.group(1)} registers, {spill.group(1)} bytes spill stores")
 
 
 def _inputs(shape, dtype, dev, seed):
@@ -396,6 +477,45 @@ def phase_masked_checks(dev, errs, checked):
         if shape in M_MAIN:
             errs["mqkv_fwd"] = max(errs["mqkv_fwd"], abs_f)
             errs["mqkv_bwd"] = max(errs["mqkv_bwd"], abs_b)
+
+
+def _conv_inputs(shape, dtype, dev, seed):
+    """x (B, H, W, C), kaiming-scaled HWIO taps (3, 3, C, O) and an output
+    gradient (B, H, W, O)."""
+    b, h, w, c, o = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype)
+    k = (torch.randn(3, 3, c, o, device=dev, generator=gen) * (2.0 / (9 * c)) ** 0.5).to(dtype)
+    go = torch.randn(b, h, w, o, device=dev, generator=gen).to(dtype)
+    return x, k, go
+
+
+def phase_conv_checks(dev, errs, checked):
+    """The conv kernels against their plain versions: y, dx (the forward
+    kernel on the output gradient and the rotated, C<->O-swapped taps, as
+    the backward computes it) and dw (f32); adds the ``_shape_key`` of each
+    checked launch to ``checked``."""
+    C = _conv_module()
+    cases = C_SMALL + [(shape, torch.bfloat16) for shape in C_MAIN]
+    for i, (shape, dtype) in enumerate(cases):
+        x, k, go = _conv_inputs(shape, dtype, dev, seed=300 + i)
+        kr = C.rotate_taps(k).contiguous()
+        checked.update({_shape_key("conv3x3_fwd", x, k), _shape_key("conv3x3_fwd", go, kr),
+                        _shape_key("conv3x3_dw", x, go)})
+        y, dx, dw = C.conv3x3_cuda(x, k), C.conv3x3_cuda(go, kr), C.conv3x3_dw_cuda(x, go)
+        torch.cuda.synchronize()
+        got = {"y": _err(y, C.conv3x3_plain(x, k)), "dx": _err(dx, C.conv3x3_plain(go, kr)),
+               "dw": _err(dw, C.conv3x3_dw_plain(x, go))}
+        tol = {"y": TOL[dtype], "dx": TOL[dtype], "dw": TOL[torch.float32]}  # dw is f32
+        b, h, w, c, o = shape
+        tag = f"B {b} {h}x{w} C {c} -> O {o} {str(dtype).split('.')[-1]}"
+        print(f"[conv check] {tag}: max abs err (scaled) " + ", ".join(
+            f"{n} {a:.3e} ({r:.3e}, tolerance {tol[n]:.1e})" for n, (a, r) in got.items()))
+        for n, (_, r) in got.items():
+            _require(dw.dtype == torch.float32 and r <= tol[n], f"conv kernel {n} disagrees at {tag}")
+        if shape in C_MAIN:
+            errs["conv3x3_fwd"] = max(errs["conv3x3_fwd"], got["y"][0], got["dx"][0])
+            errs["conv3x3_dw"] = max(errs["conv3x3_dw"], got["dw"][0])
 
 
 def _slice_config(name):
@@ -759,6 +879,150 @@ def phase_clip_reference(trainer, dev):
         _compare(tag, got, ref, tol)
 
 
+def _icarl_config(task_num):
+    """``ICARL_CONFIG`` cut to ``task_num`` tasks of 10 classes."""
+    cfg = copy.deepcopy(ICARL_CONFIG)
+    cfg["task_num"] = task_num
+    cfg["classifier"]["kwargs"].update(num_class=10 * task_num, task_num=task_num)
+    return cfg
+
+
+def _stride1_3x3_convs(backbone):
+    """(name, module) of every stride-1 3x3 convolution: the CIFAR stem and,
+    in each block, both convolutions but a downsampling block's first."""
+    from libcontinual_tpu_torch.models.resnet import Conv
+
+    return [(n, m) for n, m in backbone.named_modules()
+            if isinstance(m, Conv) and m.weight.shape[-1] == 3 and m.stride == 1]
+
+
+def phase_icarl_slice(dev):
+    """iCaRL through the trainer on a full-width resnet18 (CIFAR stem, bf16,
+    batch 128, herding buffer 200), cut to 2 tasks of 10 classes and 2
+    epochs: task 1 trains on its images and the buffer, with KD against the
+    task-0 teacher, and evaluates by NME. The ResNet's convolutions are
+    cuDNN's, as the JAX ResNet's are XLA's, so the run launches no kernel of
+    the port."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.core.trainer import Trainer
+
+    cfg = Config(overrides=_icarl_config(2)).get_config_dict()
+    trainer = Trainer(cfg, device=dev)
+    backbone = trainer.state.params["backbone"]
+    n_params = sum(p.numel() for p in backbone.parameters())
+    print(f"[slice iCaRL] resnet18: CIFAR stem {backbone.cifar_stem}, widths "
+          f"{[blk.bn1.weight.numel() for blk in backbone.blocks]}, {n_params} backbone parameters")
+    _require(backbone.cifar_stem and n_params == RESNET18_CIFAR_PARAMS
+             and trainer.method.feat_dim == 512, "iCaRL: not the full-width CIFAR resnet18")
+    params0 = {k: v.clone() for k, v in trainer.state.params.state_dict().items()}
+    losses = []
+    trainer.epoch_hook = lambda t, e, s, step_losses: losses.append(np.asarray(step_losses))
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = trainer.train_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+
+    state, buf = trainer.state, trainer.buffer
+    counts = np.bincount(buf.labels, minlength=20).tolist()
+    steps = [len(x) for x in losses]
+    table = res["acc_table"]
+    print(f"[slice iCaRL] {sum(steps)} train steps {steps} in {wall:.1f} s, losses "
+          f"{np.concatenate(losses).round(4).tolist()}")
+    print(f"[slice iCaRL] acc table {table.tolist()}, last avg acc {res['last_avg_acc']}")
+    print(f"[slice iCaRL] buffer: {len(buf)} exemplars, per class {counts}; NME ready "
+          f"{state.mvars['nme_ready']}, class means for "
+          f"{int(state.mvars['mean_valid'].sum())} classes")
+    print(f"[slice iCaRL] kernel launches in the run: {launches}")
+    _require(all(np.isfinite(x).all() for x in losses), "iCaRL: non-finite loss")
+    # 600 images, then 600 + 200 exemplars, in batches of 128, 2 epochs each
+    _require(steps == [5, 5, 7, 7], f"iCaRL: steps {steps}")
+    _require(table.shape == (2, 2) and np.isfinite(table).all(), "iCaRL: acc table not filled")
+    _require(counts == [10] * 20, "iCaRL: the herding buffer is not 10 exemplars a class")
+    _require(state.mvars["nme_ready"] and int(state.mvars["mean_valid"].sum()) == 20,
+             "iCaRL: class means do not cover the 20 classes")
+    params1 = state.params.state_dict()
+    for pname in ("head.dense.weight", "backbone.conv_stem.weight",
+                  "backbone.blocks.7.conv1.weight", "backbone.bn_stem.running_mean"):
+        _require(not torch.equal(params0[pname], params1[pname]), f"iCaRL: {pname} did not move")
+    _require(not any(launches.values()), f"iCaRL: the ResNet launched a kernel: {launches}")
+    return trainer
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_icarl_conv_path(trainer, dev, seen):
+    """One training batch of 128 through the trained iCaRL network's loss
+    (CE and KD at task 1): hooks capture the input and the output gradient
+    of each of its 14 stride-1 3x3 convolutions. ``conv3x3`` (forward, and
+    backward through autograd: the forward kernel for dx, the dw kernel)
+    then recomputes y, dx and dw of each; they agree with the modules' own
+    cuDNN results. Returns this run's launch counts: exactly 2 forward-kernel
+    launches and 1 dw launch a convolution."""
+    C = _conv_module()
+    state, method = trainer.state, trainer.method
+    convs = _stride1_3x3_convs(state.params["backbone"])
+    _require(len(convs) == 14, f"resnet18 has {len(convs)} stride-1 3x3 convolutions, not 14")
+    td = trainer.train_stream.task(state.task)
+    batch = {"image": torch.from_numpy(td.images[:128]).to(dev),
+             "label": torch.from_numpy(td.labels[:128].astype(np.int64)).to(dev),
+             "weight": torch.ones(128, device=dev)}
+    batch["x"] = method.augment(state.rng, batch["image"], train=True)
+    captured, handles = {}, []
+    for name, mod in convs:
+        def hook(mod, args, out, name=name):
+            cap = captured[name] = {"x": args[0].detach().to(mod.dtype), "y": out.detach()}
+            out.register_hook(lambda g: cap.__setitem__("g", g.detach()))
+        handles.append(mod.register_forward_hook(hook))
+    try:
+        loss, _ = method.loss(state, batch)
+        loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    state.params.zero_grad(set_to_none=True)
+
+    nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
+    outs = []
+    _reset_launches()
+    with _recorded_shapes(seen):
+        for name, mod in convs:
+            cap = captured[name]
+            x = nhwc(cap["x"]).requires_grad_()
+            w = mod.weight.detach().permute(2, 3, 1, 0).contiguous().requires_grad_()  # HWIO f32
+            y = C.conv3x3(x, w)
+            y.backward(nhwc(cap["g"]))
+            outs.append((y.detach(), x.grad, w.grad))
+    torch.cuda.synchronize()
+    launches = _launches()
+    print(f"[conv path] launches for the 14 convolutions: {launches}")
+    _require(launches["conv3x3_fwd"] == 28 and launches["conv3x3_dw"] == 14
+             and sum(launches.values()) == 42, f"conv path launched {launches}")
+
+    worst = {"y": 0.0, "dx": 0.0, "dw": 0.0}
+    for (name, mod), (y, dx, dw) in zip(convs, outs):
+        cap = captured[name]
+        wb = mod.weight.detach().to(mod.dtype)
+        dx_ref, dw_ref, _ = torch.ops.aten.convolution_backward(
+            cap["g"], cap["x"], wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+        err = {"y": _rel_l2(y, nhwc(cap["y"])), "dx": _rel_l2(dx, nhwc(dx_ref)),
+               "dw": _rel_l2(dw, dw_ref.permute(2, 3, 1, 0))}
+        b, h, w_, c = cap["x"].shape[0], *cap["x"].shape[2:], cap["x"].shape[1]
+        print(f"[conv path] {name} ({b}x{h}x{w_}x{c} -> {mod.weight.shape[0]}): relative L2 "
+              f"against cuDNN y {err['y']:.3e}, dx {err['dx']:.3e}, dw {err['dw']:.3e} "
+              f"(tolerance {CONV_PATH_TOL})")
+        for k, v in err.items():
+            worst[k] = max(worst[k], v)
+            _require(np.isfinite(v) and v <= CONV_PATH_TOL, f"conv path {name}: {k} disagrees")
+    print(f"[conv path] worst relative L2 over the 14 convolutions: {worst}")
+    return launches
+
+
 def _time_cuda(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -794,19 +1058,19 @@ def _pqkv_bounds(b, s, p, d, h):
             _bound(2 * b * (per_image + s * 3 * d + 2 * p * d), 5 * flops))
 
 
-def _time_pair(label, runs, card):
-    """``runs`` maps plain, library (SDPA), any other yardstick and kernel
-    to a function, in that order; each is timed twice, in that order and
-    then in reverse, and the better of the two is kept."""
+def _time_pair(label, runs, card, library="sdpa"):
+    """``runs`` maps plain, library (SDPA or cuDNN), any other yardstick and
+    kernel to a function, in that order; each is timed twice, in that order
+    and then in reverse, and the better of the two is kept."""
     order = list(runs) + list(runs)[::-1]
     times = {k: [] for k in runs}
     for k in order:
         times[k].append(_time_cuda(runs[k]))
     best = {k: min(v) for k, v in times.items()}
-    others = "".join(f", sdpa {k} {best[k]:.4f} ms" for k in runs
+    others = "".join(f", {library} {k} {best[k]:.4f} ms" for k in runs
                      if k not in ("kernel", "plain", "library"))
     print(f"[timing] {label}: kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms, "
-          f"sdpa {best['library']:.4f} ms{others} (all runs "
+          f"{library} {best['library']:.4f} ms{others} (all runs "
           f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}) [{card}]")
     return best
 
@@ -917,21 +1181,59 @@ def phase_kernel_timing(dev, card):
 
 
 def print_unported_bounds():
-    """The bounds of the TPU kernels no ported path runs yet, at a stated
-    shape, in bf16 (f32 for the weight gradient): the generic attention
-    forward at ViT-B/16's (B 128, H 12, S 197, hd 64), and the 3x3 stride-1
-    convolution and its weight gradient at resnet18's first CIFAR stage
-    (N 128, 32 x 32, C 64 -> O 64)."""
-    b, h, s, hd = 128, 12, 197, 64
-    ms, by = _bound(2 * 4 * b * s * h * hd, 4 * b * h * s * s * hd)  # q, k, v read; o written
-    print(f"[bound] _attention_kernel at B {b} H {h} S {s} hd {hd}: {ms * 1e3:.1f} us ({by})")
-    n, hw, c, o = 128, 32, 64, 64
-    act = n * hw * hw * c * 2
-    flops = 2 * n * hw * hw * c * o * 9
-    ms, by = _bound(2 * act + 9 * c * o * 2, flops)  # x read, w read, y written
-    print(f"[bound] conv3x3 _fwd_kernel at {n}x{hw}x{hw}x{c} -> {o}: {ms * 1e3:.1f} us ({by})")
-    ms, by = _bound(2 * act + 9 * c * o * 4, flops)  # x and g read, f32 dw written
-    print(f"[bound] conv3x3 _dw_kernel at {n}x{hw}x{hw}x{c} -> {o}: {ms * 1e3:.1f} us ({by})")
+    """The bounds of the TPU kernels no ported path runs yet, in bf16 (q, k
+    and v read once, o written once): the generic attention forward
+    ``_attention_kernel`` at ViT-B/16's (B 128, H 12, S 197, hd 64), its
+    measurement variants of ``tools/bench_attention.py`` at that tool's
+    default (S 217), and ``tools/exp_flash_kernel.py``'s grouped-head
+    forward at its two lengths (S 197 and 222)."""
+    b, h, hd = 128, 12, 64
+    for what, s in (("_attention_kernel (row 7)", 197),
+                    ("tools/bench_attention.py variants (row 10)", 217),
+                    ("tools/exp_flash_kernel.py fwd_kernel (row 11)", 197),
+                    ("tools/exp_flash_kernel.py fwd_kernel (row 11)", 222)):
+        ms, by = _bound(2 * 4 * b * s * h * hd, 4 * b * h * s * s * hd)
+        print(f"[bound] {what} at B {b} H {h} S {s} hd {hd}: {ms * 1e3:.1f} us ({by})")
+
+
+def _conv_bounds(b, h, w, c, o):
+    """(forward, weight-gradient) bounds of the conv kernels in bf16: x and
+    the taps read and y written (bf16); x and g read and the f32 dw written;
+    9 taps of a (B*H*W, C) x (C, O) product each."""
+    act_x, act_y, flops = 2 * b * h * w * c, 2 * b * h * w * o, 2 * b * h * w * c * o * 9
+    return (_bound(act_x + 2 * 9 * c * o + act_y, flops),
+            _bound(act_x + act_y + 4 * 9 * c * o, flops))
+
+
+def phase_conv_timing(dev, card):
+    """The conv kernels at the stem and the four stages (bf16, B 128),
+    beside their plain versions and cuDNN (``F.conv2d`` on ``channels_last``
+    and its weight gradient through ``aten.convolution_backward``; the port
+    never calls them). Returns {shape: (fwd times, fwd bound, dw times, dw
+    bound)}."""
+    C = _conv_module()
+    out = {}
+    for shape in C_MAIN:
+        b, h, w, c, o = shape
+        x, k, go = _conv_inputs(shape, torch.bfloat16, dev, seed=9)
+        xc, gc = x.permute(0, 3, 1, 2), go.permute(0, 3, 1, 2)  # NCHW views of NHWC memory
+        kc = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        tag = f"B {b} {h}x{w} C {c} -> O {o} bf16"
+        fwd = _time_pair(f"conv3x3_fwd at {tag}", {
+            "plain": lambda: C.conv3x3_plain(x, k),
+            "library": lambda: F.conv2d(xc, kc, padding=1),
+            "kernel": lambda: C.conv3x3_cuda(x, k)}, card, library="cudnn")
+        dw = _time_pair(f"conv3x3_dw at {tag}", {
+            "plain": lambda: C.conv3x3_dw_plain(x, go),
+            "library": lambda: torch.ops.aten.convolution_backward(
+                gc, xc, kc, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]),
+            "kernel": lambda: C.conv3x3_dw_cuda(x, go)}, card, library="cudnn")
+        bound_fwd, bound_dw = _conv_bounds(*shape)
+        print(f"[bound] conv3x3 at {tag}: forward {bound_fwd[0] * 1e3:.1f} us ({bound_fwd[1]}), "
+              f"dw {bound_dw[0] * 1e3:.1f} us ({bound_dw[1]})")
+        out[shape] = (fwd, bound_fwd, dw, bound_dw)
+        del x, k, go, xc, gc, kc
+    return out
 
 
 def _step_setup(dev, name):
@@ -987,17 +1289,86 @@ def phase_step_timing(dev, card, name, n_steps=20, profile=False):
         _profile_step(method, state, batch, name, card)
 
 
-def _profile_step(method, state, batch, name, card, steps=3):
+def phase_icarl_step_timing(dev, card, n_steps=20):
+    """The iCaRL / resnet18 train step at bench.py's protocol (batch 128,
+    bf16, 32 px, the cifar transform stack) as in every task after the
+    first: CE over 20 seen classes plus KD against a teacher."""
+    import libcontinual_tpu_torch.methods  # noqa: F401  (registers the methods)
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.registry import METHODS
+
+    cfg = Config(overrides=copy.deepcopy(ICARL_CONFIG)).get_config_dict()
+    method = METHODS.get("ICarl")(cfg, dev)
+    state = method.init_state(1993, (32, 32, 3))
+    state = method.after_task(state, 0, None)  # the teacher
+    state = method.start_task(state, 1, 10, 20)
+    state = method.reset_optimizer(state, 1)
+    rng = np.random.RandomState(0)
+    bs = cfg["batch_size"]
+    batch = {
+        "image": torch.from_numpy(rng.randint(0, 255, (bs, 32, 32, 3)).astype(np.uint8)).to(dev),
+        "label": torch.from_numpy(rng.randint(0, 20, (bs,))).to(dev),
+        "weight": torch.ones(bs, device=dev),
+    }
+
+    def img_per_s():
+        for _ in range(3):
+            method.train_step(state, batch, 0.05)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            method.train_step(state, batch, 0.05)
+        torch.cuda.synchronize()
+        return n_steps * bs / (time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = [img_per_s(), img_per_s()]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[timing] iCaRL train step, resnet18 (CIFAR stem) bf16, batch {bs}, 32 px, KD on: "
+          f"{runs[0]:.2f} and {runs[1]:.2f} img/s; peak memory {peak:.2f} GiB [{card}]")
+    _profile_step(method, state, batch, "iCaRL", card, lr=0.05,
+                  family=("cuDNN convolution (by name)",
+                          ("fprop", "dgrad", "wgrad", "xmma", "cudnn", "implicit", "conv2d")))
+    return runs
+
+
+def phase_icarl_protocol(dev, card):
+    """bench.py's end-to-end block in the port: the whole 10-task iCaRL run
+    of ``ICARL_CONFIG`` through the trainer (60 images a class, 2 epochs a
+    task, herding buffer 200), from building the trainer to its summary."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.core.trainer import Trainer
+
+    cfg = Config(overrides=copy.deepcopy(ICARL_CONFIG)).get_config_dict()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    res = trainer.train_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    table = res["acc_table"]
+    counts = np.bincount(trainer.buffer.labels, minlength=100)
+    print(f"[protocol] 10-task iCaRL resnet18, 60 img/class synthetic CIFAR geometry, 2 "
+          f"epochs/task, herding buffer 200: wall {wall:.2f} s, train_loop {res['time_sec']:.2f} s, "
+          f"last avg acc {res['last_avg_acc']}, overall avg acc {res['batch_ovr_avg_acc']:.2f}, "
+          f"inference {res['fps']:.0f} img/s [{card}]")
+    print(f"[protocol] final acc row {table[-1].tolist()}")
+    _require(table.shape == (10, 10) and np.isfinite(table).all(), "protocol: acc table not filled")
+    _require(counts.tolist() == [2] * 100, "protocol: the buffer is not 2 exemplars a class")
+    return wall, res
+
+
+def _profile_step(method, state, batch, name, card, steps=3, lr=1e-3,
+                  family=("attention", ("lct::attn_",))):
     """Device time per step by kernel, over ``steps`` steps after warm-up."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        method.train_step(state, batch, 1e-3)
+        method.train_step(state, batch, lr)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            method.train_step(state, batch, 1e-3)
+            method.train_step(state, batch, lr)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = []
@@ -1011,12 +1382,23 @@ def _profile_step(method, state, batch, name, card, steps=3):
             rows.append((dev_us / 1e3 / steps, evt.count / steps, evt.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    attn = sum(r[0] for r in rows if "lct::attn_" in r[2])
-    print(f"[profile] {name} step: {total:.3f} ms of kernel time a step ({attn:.3f} ms in the "
-          f"attention kernels) in {wall_ms:.3f} ms of profiled wall time (kernels "
+    label, keys = family
+    part = sum(r[0] for r in rows if any(k in r[2] for k in keys))
+    print(f"[profile] {name} step: {total:.3f} ms of kernel time a step ({part:.3f} ms in the "
+          f"{label} kernels) in {wall_ms:.3f} ms of profiled wall time (kernels "
           f"{100 * total / wall_ms:.1f}% of it) [{card}]")
     for ms, calls, key in rows[:14]:
         print(f"[profile]   {ms:9.3f} ms  {calls:6.1f} calls  {key[:110]}")
+    # the host's side: self CPU time of each op (under the profiler, which
+    # adds its own cost to every op)
+    host = sorted(((evt.self_cpu_time_total / 1e3 / steps, evt.count / steps, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+    print(f"[profile] {name} host: {sum(h[0] for h in host):.3f} ms of self CPU time a step in "
+          f"{sum(h[1] for h in host):.0f} op calls; {sum(r[1] for r in rows):.0f} device "
+          f"kernels a step [{card}]")
+    for ms, calls, key in host[:8]:
+        print(f"[profile]   host {ms:9.3f} ms  {calls:6.1f} calls  {key[:100]}")
 
 
 def main() -> int:
@@ -1037,6 +1419,7 @@ def main() -> int:
     phase_checks(dev, errs, checked)
     phase_prefix_checks(dev, errs, checked)
     phase_masked_checks(dev, errs, checked)
+    phase_conv_checks(dev, errs, checked)
 
     launches = {}
     for name in ("L2P", "DualPrompt", "CodaPrompt", "DAP", "MoE_Adapter4CL", "RAPF"):
@@ -1049,32 +1432,47 @@ def main() -> int:
             phase_clip_reference(trainer, dev)
         del trainer
         torch.cuda.empty_cache()
+    trainer = phase_icarl_slice(dev)
+    launches["iCaRL_resnet18 conv3x3"] = phase_icarl_conv_path(trainer, dev, seen)
+    del trainer
+    torch.cuda.empty_cache()
     # every shape the slices gave a kernel was checked against the plain version
-    print(f"[slices] kernel shapes launched (kernel, S, [P,] D, heads, dtype): "
-          f"{sorted(map(str, seen))}")
+    print(f"[slices] kernel shapes launched (kernel, S, [P,] D, heads, dtype; or kernel, H, W, "
+          f"C, O, dtype): {sorted(map(str, seen))}")
     _require(not seen - checked, f"kernels launched at unchecked shapes: {seen - checked}")
 
     times = phase_kernel_timing(dev, card)
+    conv_times = phase_conv_timing(dev, card)
+    fwd, bound_fwd, dw, bound_dw = conv_times[C_TIMED]
+    times["conv3x3_fwd"], times["conv3x3_dw"] = (fwd, bound_fwd), (dw, bound_dw)
     phase_step_timing(dev, card, "L2P")
     phase_step_timing(dev, card, "DualPrompt", profile=True)
     phase_step_timing(dev, card, "MoE_Adapter4CL", profile=True)
+    phase_icarl_step_timing(dev, card)
+    phase_icarl_protocol(dev, card)
     print(f"[env] all phases in {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, line in SOURCE_LINES.items():
         best, (bound_ms, by) = times[kname]
-        # this slice's main path, MoE-Adapter4CL, runs the qkv and masked
-        # kernels; the prefix kernels' path is DualPrompt
-        path = "DualPrompt" if kname.startswith("pqkv") else "MoE_Adapter4CL"
-        kernels.append({
-            "name": kname, "route": "cuda", "source": "libcontinual_tpu_torch/ops/csrc/attention.cu",
-            "replaces": f"libcontinual_tpu/ops/attention.py:{line}",
+        # the main path of each kernel: MoE-Adapter4CL runs the qkv and masked
+        # kernels, DualPrompt the prefix kernels, and the trained iCaRL
+        # resnet18's convolutions the conv kernels
+        path = ("DualPrompt" if kname.startswith("pqkv") else
+                "iCaRL_resnet18 conv3x3" if kname.startswith("conv") else "MoE_Adapter4CL")
+        entry = {
+            "name": kname, "route": "cuda", "source": SOURCES[kname], "replaces": line,
             "launches": launches[path][kname], "main_path": path,
             "launches_by_path": {p: n[kname] for p, n in launches.items()},
             "max_abs_err": errs[kname], "ms": best["kernel"], "plain_ms": best["plain"],
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": by,
             "library_ms": best["library"],
-        })
+        }
+        if kname.startswith("conv"):
+            b, h, w, c, o = C_TIMED
+            entry["library"] = "cuDNN"
+            entry["shape"] = f"B {b} {h}x{w} C {c} -> O {o} bf16"
+        kernels.append(entry)
     for k in kernels:
         _require(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(card)

@@ -12,6 +12,12 @@ Layout maps (the inverse of ``_load_timm_torch_into`` in
   * DualPrompt's, CODA-Prompt's and DAP's ``{"head": {"Dense_0": ...},
     "prompt": {name: array}}``, name for name into the method's
     ``nn.ParameterDict``;
+  * a ResNet's ``conv_stem`` / ``bn_stem`` and ``BasicBlock_{i}`` subtrees
+    (``Conv_0``, ``BatchNorm_0``, ``Conv_1``, ``BatchNorm_1`` and, where the
+    shapes change, ``downsample`` / ``downsample_bn``), the BatchNorm
+    ``scale`` / ``bias`` with the ``batch_stats`` ``mean`` / ``var`` as the
+    running buffers; the rehearsal methods' ``{"backbone", "head"}`` tree,
+    iCaRL's teacher and class means;
   * the CLIP tree (both towers, ``ln_pre_n``, ``token_embedding``,
     ``pos_embed``, both projections, ``logit_scale``) and the MoE leaves
     (``w_gate``, ``w_noise``, ``down``, ``down_b``, ``up``, ``up_b``) as they
@@ -52,6 +58,67 @@ def load_dense(lin: nn.Linear, p: Tree, name: str = "dense") -> None:
 def load_layer_norm(ln: nn.LayerNorm, p: Tree, name: str = "norm") -> None:
     _put(ln.weight, _tensor(p["scale"]), f"{name}.scale")
     _put(ln.bias, _tensor(p["bias"]), f"{name}.bias")
+
+
+def load_conv(conv: nn.Module, p: Tree, name: str = "conv") -> None:
+    _put(conv.weight, _tensor(p["kernel"]).permute(3, 2, 0, 1), f"{name}.kernel")
+
+
+def load_batch_norm(bn: nn.Module, p: Tree, stats: Tree, name: str = "bn") -> None:
+    _put(bn.weight, _tensor(p["scale"]), f"{name}.scale")
+    _put(bn.bias, _tensor(p["bias"]), f"{name}.bias")
+    _put(bn.running_mean, _tensor(stats["mean"]), f"{name}.mean")
+    _put(bn.running_var, _tensor(stats["var"]), f"{name}.var")
+
+
+def load_resnet(resnet: nn.Module, p: Tree, stats: Tree) -> None:
+    """A flax ``ResNet`` / ``CifarResNet`` (``params`` and ``batch_stats``)
+    into a port ``ResNet``."""
+    load_conv(resnet.conv_stem, p["conv_stem"], "conv_stem")
+    load_batch_norm(resnet.bn_stem, p["bn_stem"], stats["bn_stem"], "bn_stem")
+    n_blocks = len([k for k in p if k.startswith("BasicBlock_")])
+    if n_blocks != len(resnet.blocks):
+        raise ValueError(f"{n_blocks} blocks in the source, {len(resnet.blocks)} in the module")
+    for i, blk in enumerate(resnet.blocks):
+        name = f"BasicBlock_{i}"
+        b, st = p[name], stats[name]
+        load_conv(blk.conv0, b["Conv_0"], f"{name}.Conv_0")
+        load_batch_norm(blk.bn0, b["BatchNorm_0"], st["BatchNorm_0"], f"{name}.BatchNorm_0")
+        load_conv(blk.conv1, b["Conv_1"], f"{name}.Conv_1")
+        load_batch_norm(blk.bn1, b["BatchNorm_1"], st["BatchNorm_1"], f"{name}.BatchNorm_1")
+        if ("downsample" in b) != (blk.downsample is not None):
+            raise ValueError(f"{name}: downsample on one side only")
+        if blk.downsample is not None:
+            load_conv(blk.downsample, b["downsample"], f"{name}.downsample")
+            load_batch_norm(blk.downsample_bn, b["downsample_bn"], st["downsample_bn"],
+                            f"{name}.downsample_bn")
+
+
+def load_backbone_params(modules: nn.ModuleDict, p: Tree, batch_stats: Tree) -> None:
+    """A rehearsal method's ``{"backbone", "head"}`` tree and its backbone's
+    ``batch_stats`` into the port's ``{"backbone", "head"}`` modules."""
+    load_resnet(modules["backbone"], p["backbone"], batch_stats)
+    load_dense(modules["head"].dense, p["head"]["Dense_0"], "head.Dense_0")
+
+
+def resnet_state_from_flax(method, params: Tree, mvars: Tree, seed: int = 0):
+    """A port ``TrainState`` for a method on a ResNet (Finetune, iCaRL)
+    holding the JAX state's weights: ``params`` is ``state.params`` and
+    ``mvars`` is ``state.mvars``, both as numpy trees. iCaRL's teacher, class
+    means and their flags come along."""
+    from libcontinual_tpu_torch.models import get_backbone
+    from libcontinual_tpu_torch.models.heads import LinearHead
+
+    state = method.backbone_state(
+        get_backbone(method.config), LinearHead(method.feat_dim, method.num_class), seed)
+    load_backbone_params(state.params, params, mvars["model_state"]["batch_stats"])
+    mv, dev = state.mvars, method.device
+    if "teacher" in mv:
+        load_backbone_params(mv["teacher"], mvars["teacher"], mvars["teacher_state"]["batch_stats"])
+        mv["class_means"] = _tensor(mvars["class_means"]).to(dev)
+        mv["mean_valid"] = _tensor(mvars["mean_valid"]).to(dev)
+        mv["nme_ready"] = bool(np.asarray(mvars["nme_ready"]) > 0)
+    return state
 
 
 MOE_LEAVES = ("w_gate", "w_noise", "down", "down_b", "up", "up_b")

@@ -1,11 +1,19 @@
 """The Method protocol (``libcontinual_tpu/core/method.py``).
 
 A method owns its modules and its pipelines and exposes the JAX package's
-hooks that the ported methods use: ``start_task``, ``before_task`` and
-``reset_optimizer`` at the start of a task and ``after_task`` at its end,
-``loss`` for a batch, ``train_step`` for one update (with the learning rate
-passed in per step) and ``eval_step`` for predictions. The state it works on
-is a :class:`~libcontinual_tpu_torch.core.state.TrainState`.
+hooks: ``start_task``, ``before_task`` and ``reset_optimizer`` at the start of
+a task, ``build_train_data``, ``epochs_for_task`` and ``override_schedule``
+for its training data and schedule, ``after_task``, ``on_buffer_updated``
+and ``extra_phases`` at its end, ``loss`` for a batch, ``train_step`` for one
+update (with the learning rate passed in per step) and ``eval_step`` for
+predictions. The state it works on is a
+:class:`~libcontinual_tpu_torch.core.state.TrainState`.
+
+The defaults are the JAX base class's, Finetune's semantics: a backbone with
+running statistics (``params["backbone"]``, its BatchNorm statistics as
+module buffers) and a linear head (``params["head"]``), plain CE on the full
+head, logits for evaluation and the backbone's eval-mode features for
+herding.
 """
 
 from __future__ import annotations
@@ -15,10 +23,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch import nn
+
 from libcontinual_tpu_torch.core.optim import make_optimizer, set_lr
 from libcontinual_tpu_torch.core.state import TrainState, make_masks
 from libcontinual_tpu_torch.data.transforms import build_transform
-from libcontinual_tpu_torch.models import compute_dtype
+from libcontinual_tpu_torch.models import backbone_feat_dim, compute_dtype, get_backbone
+from libcontinual_tpu_torch.models.heads import LinearHead
+from libcontinual_tpu_torch.utils.seeding import make_generator
 
 
 def masked_cross_entropy(
@@ -55,10 +67,12 @@ def weighted_accuracy(logits, labels, weight=None):
 
 
 class Method:
-    """Base class: config parsing, pipelines, optimizers and the step loop
-    shared by every method. Subclasses provide ``init_state``, ``loss`` and
-    ``eval_logits``. (The JAX package's other hooks, such as
-    ``on_buffer_updated``, come with the first ported method that needs them.)"""
+    """Base class: config parsing, pipelines, optimizers, the step loop and
+    the hooks shared by every method, with Finetune's semantics by default."""
+
+    #: the trainer concatenates the replay buffer into the task data and
+    #: updates it after each task
+    concat_buffer: bool = True
 
     def __init__(self, config: Dict[str, Any], device):
         self.config = config
@@ -72,8 +86,18 @@ class Method:
         self.init_cls_num = int(config["init_cls_num"])
         self.inc_cls_num = int(config["inc_cls_num"])
         self.kwargs = ck
+        # distillation teachers run in train mode on the batch's statistics
+        # (the reference trainer's per-epoch model.train() reaches them);
+        # ``teacher_batch_stats: false`` runs them on their running statistics
+        self.teacher_train = bool(ck.get("teacher_batch_stats", True))
         self.dtype = compute_dtype(config)
         self._build_pipelines()
+
+    @property
+    def feat_dim(self) -> int:
+        """The backbone's feature width (``classifier.kwargs.feat_dim``, else
+        the ResNet table); raises for a backbone that has neither."""
+        return backbone_feat_dim(self.config)
 
     def _backbone_kind(self) -> str:
         name = self.config["backbone"]["name"].lower()
@@ -101,7 +125,33 @@ class Method:
     # ------------------------------------------------------------------ state
 
     def init_state(self, seed: int, sample_input_hw: Tuple[int, int, int]) -> TrainState:
-        raise NotImplementedError
+        """The backbone and a linear head, drawn from a CPU generator seeded
+        with ``seed``, on the method's device."""
+        gen = make_generator(seed, "cpu")
+        backbone = get_backbone(self.config, gen)
+        head = LinearHead(self.feat_dim, self.num_class, generator=gen)
+        return self.backbone_state(backbone, head, seed)
+
+    def backbone_state(self, backbone: nn.Module, head: nn.Module, seed: int) -> TrainState:
+        """A state around given modules: both trainable, f32 parameters."""
+        params = nn.ModuleDict({"backbone": backbone, "head": head}).to(self.device)
+        seen, prev = make_masks(self.num_class, 0, self.init_cls_num, self.device)
+        state = TrainState(
+            params=params,
+            opt_state=self._tx_for_task(0, params.parameters()),
+            mvars={},
+            rng=make_generator(seed, self.device),
+            step=0,
+            task=0,
+            seen_mask=seen,
+            prev_mask=prev,
+        )
+        state.mvars.update(self.init_mvars(state))
+        return state
+
+    def init_mvars(self, state: TrainState) -> Dict[str, Any]:
+        """Method-owned variables of a new state."""
+        return {}
 
     def trainable_parameters(self, state: TrainState):
         return [p for p in state.params.parameters() if p.requires_grad]
@@ -137,14 +187,49 @@ class Method:
         """Trainer-called after the task's training epochs."""
         return state
 
+    def on_buffer_updated(self, state: TrainState, task_idx: int, buffer) -> TrainState:
+        """Trainer-called after it refreshed the replay buffer (iCaRL
+        recomputes its exemplar class means here)."""
+        return state
+
+    def extra_phases(self, trainer, state: TrainState, task_idx: int, task_data) -> TrainState:
+        """Method-owned training phases after the buffer update."""
+        return state
+
+    def epochs_for_task(self, task_idx: int, default: int) -> int:
+        return default
+
+    def build_train_data(self, task_data, buffer, task_idx: int):
+        """The task's training data, or None for the trainer's default (task
+        data, then the buffer)."""
+        return None
+
+    def override_schedule(self, task_idx: int, steps_per_epoch: int, epochs: int):
+        """A schedule to use instead of the config's, or None."""
+        return None
+
     # ----------------------------------------------------------------- compute
 
     def augment(self, gen: Optional[torch.Generator], images: torch.Tensor, train: bool = True):
         pipeline = self.train_pipeline if train else self.test_pipeline
         return pipeline(gen if train else None, images)
 
+    def apply_backbone(self, params, x, train: bool, update_stats: bool = True) -> Dict:
+        """The backbone's outputs; in train mode its BatchNorm layers use the
+        batch's statistics and, with ``update_stats``, update their running
+        ones in place."""
+        return params["backbone"](x, train=train, update_stats=update_stats)
+
+    def forward(self, params, x, train: bool, update_stats: bool = True):
+        """(logits, features) through the backbone and the head."""
+        feats = self.apply_backbone(params, x, train, update_stats)["features"]
+        return params["head"](feats), feats
+
     def loss(self, state: TrainState, batch) -> Tuple[torch.Tensor, Dict]:
-        raise NotImplementedError
+        """Plain CE on the full head (Finetune)."""
+        logits, feats = self.forward(state.params, batch["x"], train=True)
+        ce = masked_cross_entropy(logits, batch["label"], batch.get("weight"))
+        return ce, {"logits": logits, "features": feats}
 
     def transform_grads(self, state: TrainState) -> None:
         """Edit the gradients in place after the backward pass."""
@@ -165,9 +250,14 @@ class Method:
         return state, {"loss": loss.detach(), "acc": acc}
 
     def eval_logits(self, state: TrainState, x, task_id: int) -> torch.Tensor:
-        raise NotImplementedError
+        return self.forward(state.params, x, train=False)[0]
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch, task_id: int) -> torch.Tensor:
         x = self.augment(None, batch["image"], train=False)
         return self.eval_logits(state, x, task_id).argmax(dim=-1)
+
+    @torch.no_grad()
+    def herding_features(self, state: TrainState, x) -> torch.Tensor:
+        """The features the herding buffer update ranks."""
+        return self.apply_backbone(state.params, x, train=False)["features"]

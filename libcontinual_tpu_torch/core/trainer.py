@@ -1,10 +1,12 @@
 """The task-incremental trainer (``libcontinual_tpu/core/trainer.py``).
 
-The same task loop, batch order, evaluation and acc-table bookkeeping as the
-JAX trainer, on one device:
+The same task loop, batch order, replay buffer, evaluation and acc-table
+bookkeeping as the JAX trainer, on one device:
 
-  * each task's uint8 arrays go to the device once; a batch is an on-device
-    index into them;
+  * each task's uint8 arrays, with the replay buffer's behind them, go to
+    the device once; a batch is an on-device index into them;
+  * after each task the buffer is updated (herding ranks the method's
+    features) and the method hears of it (``on_buffer_updated``);
   * the epoch's shuffle comes from ``data.native.shuffled_indices``, so the
     batch order equals the JAX run's for the same seed;
   * an epoch is a Python loop of train steps, the per-step learning rate
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 import libcontinual_tpu_torch.methods  # noqa: F401  (registers the methods)
+from libcontinual_tpu_torch.core.buffer import LinearBuffer, build_buffer
 from libcontinual_tpu_torch.core.metrics import compute_bwt, compute_frgt, count_parameters
 from libcontinual_tpu_torch.core.optim import make_schedule
 from libcontinual_tpu_torch.data import native
@@ -54,8 +57,6 @@ class Trainer:
         )
         seed = int(config.get("seed", 0))
         init_seed(seed, bool(config.get("deterministic", True)))
-        if int(((config.get("buffer") or {}).get("kwargs") or {}).get("buffer_size", 0)):
-            raise NotImplementedError("replay buffers are not in the PyTorch port yet")
         if (config.get("checkpoint") or {}).get("enable"):
             raise NotImplementedError("checkpoints are not in the PyTorch port yet")
 
@@ -72,6 +73,7 @@ class Trainer:
         self.train_stream, cls_map = build_stream(config, "train")
         self.test_stream, _ = build_stream(config, "test", cls_map)
 
+        self.buffer: LinearBuffer = build_buffer(config, self.device)
         self.method = METHODS.get(config["classifier"]["name"])(config, self.device)
         # the CLIP methods' class prompts read the stream's class names
         self.method.class_names = getattr(self.train_stream, "class_names", [])
@@ -221,17 +223,23 @@ class Trainer:
             task_data = self.train_stream.task(task_idx)
             self.state = method.start_task(self.state, task_idx, lo, hi)
             self.state = method.before_task(self.state, task_idx, task_data)
+            train_data = self._train_data(task_idx, task_data)
             self.state = method.reset_optimizer(self.state, task_idx)
-            steps_per_epoch = _ceil_div(len(task_data), self.batch_size)
-            epochs = self.init_epoch if task_idx == 0 else self.inc_epoch
-            sched = make_schedule(cfg, steps_per_epoch, epochs, task_idx)
+            steps_per_epoch = _ceil_div(len(train_data), self.batch_size)
+            epochs = method.epochs_for_task(
+                task_idx, self.init_epoch if task_idx == 0 else self.inc_epoch)
+            sched = method.override_schedule(task_idx, steps_per_epoch, epochs)
+            if sched is None:
+                sched = make_schedule(cfg, steps_per_epoch, epochs, task_idx)
             self.log.info(
                 "training samples: %d | params: %d",
-                len(task_data), count_parameters(self.state.params),
+                len(train_data), count_parameters(self.state.params),
             )
             if epochs > 0:
-                self._train_task(task_idx, task_data, sched, epochs)
+                self._train_task(task_idx, train_data, sched, epochs)
             self.state = method.after_task(self.state, task_idx, task_data)
+            self._update_buffer(task_idx, task_data)
+            self.state = method.extra_phases(self, self.state, task_idx, task_data)
 
             res = self._validate(task_idx)
             per_task_acc = np.asarray(res["per_task_acc"])
@@ -278,6 +286,43 @@ class Trainer:
         self.log.info(" * time %.1fs | inference fps %.0f", overall["time_sec"], overall["fps"])
         self.log.event("run_done", **{k: v for k, v in overall.items() if k != "acc_table"})
         return overall
+
+    # ----------------------------------------------------------------- buffer
+
+    def _train_data(self, task_idx: int, task_data: TaskData) -> TaskData:
+        """The method's own training data, else the task's images followed
+        by the replay buffer's (from the second task on)."""
+        custom = self.method.build_train_data(task_data, self.buffer, task_idx)
+        if custom is not None:
+            return custom
+        if (self.method.concat_buffer and self.buffer.buffer_size > 0 and task_idx > 0
+                and len(self.buffer) > 0):
+            return task_data.concat(self.buffer.as_task_data())
+        return task_data
+
+    def _update_buffer(self, task_idx: int, task_data: TaskData) -> None:
+        if not self.method.concat_buffer:
+            return
+        self.buffer.total_classes += self.init_cls_num if task_idx == 0 else self.inc_cls_num
+        if self.buffer.buffer_size > 0:
+            self.buffer.update(task_data, feature_fn=self._batched_features,
+                               seed=int(self.config.get("seed", 0)) + task_idx)
+            self.state = self.method.on_buffer_updated(self.state, task_idx, self.buffer)
+
+    def _batched_features(self, images_uint8: np.ndarray) -> np.ndarray:
+        """Eval-mode features of host images in batches of ``batch_size``;
+        the last batch is padded by repeating its last image."""
+        outs = []
+        bs = self.batch_size
+        for lo in range(0, len(images_uint8), bs):
+            chunk = images_uint8[lo:lo + bs]
+            pad = bs - len(chunk)
+            if pad:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+            x = self.method.augment(None, torch.from_numpy(chunk).to(self.device), train=False)
+            f = self.method.herding_features(self.state, x).float().cpu().numpy()
+            outs.append(f[: bs - pad])
+        return np.concatenate(outs)
 
     # ------------------------------------------------------------------ misc
 

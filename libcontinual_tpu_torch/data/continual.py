@@ -30,6 +30,16 @@ class TaskData:
     def __len__(self) -> int:
         return len(self.labels)
 
+    def concat(self, other: "TaskData") -> "TaskData":
+        """This task's rows, then ``other``'s (task data, then the replay
+        buffer)."""
+        return TaskData(
+            images=native.concat_rows(self.images, other.images),
+            labels=np.concatenate([self.labels, other.labels]),
+            class_lo=min(self.class_lo, other.class_lo),
+            class_hi=max(self.class_hi, other.class_hi),
+        )
+
 
 def build_class_map(
     num_classes: int,

@@ -1,7 +1,8 @@
-"""Host-side shuffles and row gathers, through the repository's C++ host data
-engine (``native/libhostdata.so``, built by ``make -C native``) when it is
-built, and through an identical Python mirror otherwise, so a seeded run
-draws the same batch order as ``libcontinual_tpu/data/native.py``."""
+"""Host-side shuffles, row gathers and row concatenations, through the
+repository's C++ host data engine (``native/libhostdata.so``, built by
+``make -C native``) when it is built, and through an identical Python mirror
+otherwise, so a seeded run draws the same batch order as
+``libcontinual_tpu/data/native.py``."""
 
 from __future__ import annotations
 
@@ -39,6 +40,11 @@ def _lib() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
         ]
         lib.lct_shuffled_indices.restype = None
+        lib.lct_concat_u8.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.lct_concat_u8.restype = None
         _LIB = lib
     return _LIB
 
@@ -58,6 +64,24 @@ def gather_rows(src: np.ndarray, indices: np.ndarray) -> np.ndarray:
         raise IndexError(f"gather_rows: index out of range for {n} rows")
     out = np.empty((len(idx),) + src.shape[1:], np.uint8)
     lib.lct_gather_u8(src.ctypes.data, idx.ctypes.data, out.ctypes.data, len(idx), row_bytes)
+    return out
+
+
+def concat_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``a`` then ``b`` along the rows; the engine's copy for uint8 blocks
+    of equal row shape, numpy otherwise."""
+    lib = _lib()
+    if (
+        lib is None
+        or a.dtype != np.uint8
+        or b.dtype != np.uint8
+        or a.shape[1:] != b.shape[1:]
+        or not (a.flags.c_contiguous and b.flags.c_contiguous)
+    ):
+        return np.concatenate([a, b])
+    out = np.empty((len(a) + len(b),) + a.shape[1:], np.uint8)
+    row_bytes = int(np.prod(a.shape[1:]))
+    lib.lct_concat_u8(a.ctypes.data, len(a), b.ctypes.data, len(b), out.ctypes.data, row_bytes)
     return out
 
 

@@ -16,7 +16,14 @@ Documented deviations from torchvision, kept as they are in the JAX package
     downscaling;
   * Resize is ``jax.image.resize``'s bilinear with antialias (a triangle
     kernel widened by the downscale factor, half-pixel centres, weights
-    renormalised at the borders).
+    renormalised at the borders);
+  * ColorJitter applies brightness, contrast, saturation and hue in that
+    fixed order with one final clamp, and rotates hue in YIQ space.
+
+Each random transform draws its offsets, factors or flags and hands them to
+a deterministic function of them (:func:`crop_at`, :func:`jitter`,
+:func:`hflip`, :func:`grayscale`), so a test can feed the JAX package's
+draws to the port.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ import numpy as np
 import torch
 
 NORM_PRESETS = {
+    "cifar": ([0.5071, 0.4866, 0.4409], [0.2675, 0.2565, 0.2761]),
+    "imagenet": ([0.4914, 0.4822, 0.4465], [0.2023, 0.1994, 0.2010]),
+    "imagenet_default": ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225]),
     "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
     "clip": (
         [0.48145466, 0.4578275, 0.40821073],
@@ -85,6 +95,35 @@ def center_crop(images: torch.Tensor, size) -> torch.Tensor:
         _, h, w, _ = images.shape
     i, j = (h - th) // 2, (w - tw) // 2
     return images[:, i:i + th, j:j + tw, :]
+
+
+def _pad_hw(images: torch.Tensor, padding: int) -> torch.Tensor:
+    return torch.nn.functional.pad(images, (0, 0, padding, padding, padding, padding))
+
+
+def crop_at(images: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, size,
+            padding: int = 0) -> torch.Tensor:
+    """Zero-pad by ``padding``, then crop image i at offset ``(ys[i], xs[i])``."""
+    th, tw = _pair(size)
+    if padding:
+        images = _pad_hw(images, padding)
+    b = images.shape[0]
+    dev = images.device
+    rows = ys.long()[:, None] + torch.arange(th, device=dev)[None, :]  # (B, th)
+    cols = xs.long()[:, None] + torch.arange(tw, device=dev)[None, :]  # (B, tw)
+    bidx = torch.arange(b, device=dev)[:, None, None]
+    return images[bidx, rows[:, :, None], cols[:, None, :]]
+
+
+def random_crop(gen: torch.Generator, images: torch.Tensor, size, padding: int = 0):
+    """torchvision ``RandomCrop(size, padding)``: zero padding, then a uniform
+    offset per image."""
+    th, tw = _pair(size)
+    b, h, w, _ = images.shape
+    h, w = h + 2 * padding, w + 2 * padding
+    ys = torch.randint(0, h - th + 1, (b,), generator=gen, device=images.device)
+    xs = torch.randint(0, w - tw + 1, (b,), generator=gen, device=images.device)
+    return crop_at(images, ys, xs, size, padding)
 
 
 def random_hflip(gen: torch.Generator, images: torch.Tensor, p: float = 0.5) -> torch.Tensor:
@@ -160,6 +199,69 @@ def random_resized_crop(
     return crop_and_resize(images, boxes, size)
 
 
+def _rgb_to_gray(images: torch.Tensor) -> torch.Tensor:
+    r, g, b = images[..., 0], images[..., 1], images[..., 2]
+    return (0.299 * r + 0.587 * g + 0.114 * b)[..., None]
+
+
+def jitter(images: torch.Tensor, brightness=None, contrast=None, saturation=None,
+           hue=None) -> torch.Tensor:
+    """ColorJitter with given per-image factors (B,) (None skips a step) and
+    hue angles in turns: brightness, contrast, saturation, hue, then one
+    clamp to [0, 1]."""
+    def per_image(f):
+        return f.reshape(-1, 1, 1, 1)
+
+    if brightness is not None:
+        images = images * per_image(brightness)
+    if contrast is not None:
+        mean = _rgb_to_gray(images).mean(dim=(1, 2, 3), keepdim=True)
+        images = (images - mean) * per_image(contrast) + mean
+    if saturation is not None:
+        gray = _rgb_to_gray(images)
+        images = gray + (images - gray) * per_image(saturation)
+    if hue is not None:
+        theta = hue.reshape(-1, 1, 1) * (2.0 * np.pi)
+        y = _rgb_to_gray(images)[..., 0]
+        r, g, bl = images[..., 0], images[..., 1], images[..., 2]
+        i = 0.596 * r - 0.274 * g - 0.322 * bl
+        q = 0.211 * r - 0.523 * g + 0.312 * bl
+        cos, sin = torch.cos(theta), torch.sin(theta)
+        i2 = i * cos - q * sin
+        q2 = i * sin + q * cos
+        images = torch.stack([y + 0.956 * i2 + 0.621 * q2,
+                              y - 0.272 * i2 - 0.647 * q2,
+                              y - 1.106 * i2 + 1.703 * q2], dim=-1)
+    return torch.clamp(images, 0.0, 1.0)
+
+
+def color_jitter(gen: torch.Generator, images: torch.Tensor, brightness: float = 0.0,
+                 contrast: float = 0.0, saturation: float = 0.0, hue: float = 0.0):
+    """torchvision ``ColorJitter``: each set component draws a factor per
+    image in ``[max(0, 1 - v), 1 + v]`` (hue an angle in ``[-v, v]`` turns)."""
+    b = images.shape[0]
+
+    def uniform(lo, hi):
+        return torch.rand(b, generator=gen, device=images.device) * (hi - lo) + lo
+
+    def factor(v):
+        return uniform(max(0.0, 1.0 - v), 1.0 + v) if v else None
+
+    return jitter(images, factor(brightness), factor(contrast), factor(saturation),
+                  uniform(-hue, hue) if hue else None)
+
+
+def grayscale(images: torch.Tensor, on: torch.Tensor) -> torch.Tensor:
+    """The images whose ``on`` flag is set, in gray on all three channels."""
+    gray = _rgb_to_gray(images).expand_as(images)
+    return torch.where(on[:, None, None, None], gray, images)
+
+
+def random_grayscale(gen: torch.Generator, images: torch.Tensor, p: float = 0.1):
+    return grayscale(images, torch.rand(images.shape[0], generator=gen,
+                                        device=images.device) < p)
+
+
 def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
     mean_t = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
     std_t = torch.as_tensor(std, dtype=images.dtype, device=images.device)
@@ -172,7 +274,8 @@ def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float])
 class Pipeline:
     """A transform pipeline: ``(generator or None, uint8 NHWC) -> float NHWC``.
     With no generator the random steps take their eval form (RandomResizedCrop
-    becomes Resize, flips are skipped)."""
+    becomes Resize, RandomCrop a centre crop of the padded image; flips,
+    jitter and grayscale are skipped)."""
 
     def __init__(self, steps: List[Tuple[str, Dict[str, Any]]]):
         self.steps = steps
@@ -184,9 +287,22 @@ class Pipeline:
                 x = resize(x, kw.get("size"))
             elif name == "CenterCrop":
                 x = center_crop(x, kw.get("size"))
+            elif name == "RandomCrop":
+                pad = kw.get("padding", 0)
+                if gen is None:
+                    x = center_crop(_pad_hw(x, pad) if pad else x, kw.get("size"))
+                else:
+                    x = random_crop(gen, x, kw.get("size"), pad)
             elif name == "RandomHorizontalFlip":
                 if gen is not None:
                     x = random_hflip(gen, x, kw.get("p", 0.5))
+            elif name == "ColorJitter":
+                if gen is not None:
+                    x = color_jitter(gen, x, kw.get("brightness", 0.0), kw.get("contrast", 0.0),
+                                     kw.get("saturation", 0.0), kw.get("hue", 0.0))
+            elif name == "RandomGrayscale":
+                if gen is not None:
+                    x = random_grayscale(gen, x, kw.get("p", 0.1))
             elif name == "RandomResizedCrop":
                 if gen is None:
                     x = resize(x, kw.get("size"))
@@ -215,8 +331,9 @@ def build_transform(
     mode: str = "train",
     image_size: int = 32,
 ) -> Pipeline:
-    """A pipeline from a ``train_trfms``-style list, or the ViT or CLIP preset
-    of the JAX package's ``build_transform`` when no list is given."""
+    """A pipeline from a ``train_trfms``-style list, or the ViT, CLIP or
+    resnet-style preset of the JAX package's ``build_transform`` when no list
+    is given."""
     if spec is not None:
         return Pipeline([(name, dict(params or {})) for item in spec
                          for name, params in item.items()])
@@ -224,6 +341,8 @@ def build_transform(
         mean, std = NORM_PRESETS["clip"]
         return Pipeline([("Resize", {"size": image_size}), ("CenterCrop", {"size": image_size}),
                          ("Normalize", {"mean": mean, "std": std})])
+    if backbone == "resnet":
+        return Pipeline(_resnet_steps(dataset, mode))
     if backbone != "vit":
         raise NotImplementedError(
             f"preset transforms for backbone '{backbone}' are not in the PyTorch port yet"
@@ -236,3 +355,18 @@ def build_transform(
     else:
         steps = [("Resize", {"size": 256}), ("CenterCrop", {"size": 224})]
     return Pipeline(steps + [("Normalize", {"mean": mean, "std": std})])
+
+
+def _resnet_steps(dataset: str, mode: str) -> List[Tuple[str, Dict[str, Any]]]:
+    """The resnet-style preset: the CIFAR recipe (pad-4 random crop, flip,
+    brightness jitter 63/255) at 32 px, the ImageNet one at 224 px; CIFAR
+    statistics for CIFAR, the true ImageNet ones for tiny-imagenet and the
+    CIFAR-10-like ones for every other dataset (the JAX package's table)."""
+    cifar = "cifar" in dataset
+    preset = "cifar" if cifar else ("imagenet_default" if dataset == "tiny-imagenet" else "imagenet")
+    mean, std = NORM_PRESETS[preset]
+    norm = [("Normalize", {"mean": mean, "std": std})]
+    if mode != "train":
+        return norm if cifar else [("Resize", {"size": 256}), ("CenterCrop", {"size": 224})] + norm
+    crop = ("RandomCrop", {"size": 32, "padding": 4}) if cifar else ("RandomResizedCrop", {"size": 224})
+    return [crop, ("RandomHorizontalFlip", {}), ("ColorJitter", {"brightness": 63 / 255})] + norm

@@ -2,10 +2,31 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def kd_loss(pred_logits: torch.Tensor, soft_logits: torch.Tensor, T: float = 2.0,
+            class_mask: Optional[torch.Tensor] = None,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Hinton KD as the reference computes it: softmax over the (masked)
+    class set, sum over classes, weighted mean over the batch, no T^2
+    rescale."""
+    if class_mask is not None:
+        keep = class_mask[None, :] > 0
+        pred_logits = torch.where(keep, pred_logits, -1e30)
+        soft_logits = torch.where(keep, soft_logits, -1e30)
+    p = F.log_softmax(pred_logits / T, dim=1)
+    s = F.softmax(soft_logits / T, dim=1)
+    if class_mask is not None:
+        s = s * keep
+    per = -torch.sum(s * p, dim=1)
+    if weight is None:
+        return per.mean()
+    return torch.sum(per * weight) / torch.clamp(weight.sum(), min=1.0)
 
 
 def normalized(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:

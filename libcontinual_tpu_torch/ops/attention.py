@@ -80,7 +80,7 @@ def qkv_attention_bwd_plain(
 def _lib() -> ctypes.CDLL:
     from libcontinual_tpu_torch.ops import _build
 
-    return _build.lib()
+    return _build.lib("attention")
 
 
 def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:

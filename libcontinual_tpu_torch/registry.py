@@ -1,4 +1,4 @@
-"""Explicit name -> factory registries for backbones, methods and datasets
+"""Explicit name -> factory registries for backbones, methods, datasets and buffers
 (the same pattern and names as ``libcontinual_tpu/registry.py``)."""
 
 from __future__ import annotations
@@ -38,3 +38,4 @@ class Registry:
 BACKBONES = Registry("backbone")
 METHODS = Registry("method")
 DATASETS = Registry("dataset")
+BUFFERS = Registry("buffer")

@@ -185,3 +185,98 @@ def test_moe_adapter_step_launches_the_masked_backward_per_text_block(cuda):
     torch.cuda.synchronize()
     depth = len(state.params["clip"].text.blocks)
     assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1}
+
+
+#: the conv kernels: bf16 inputs and f32 sums in both, a different sum order;
+#: relative to the largest magnitude, as above (dw is f32 in both)
+CONV_SHAPES = [(3, 5, 7, 3, 8), (2, 9, 6, 20, 24), (2, 4, 4, 20, 24), (5, 3, 3, 7, 70),
+               (2, 3, 80, 16, 16), (4, 8, 8, 64, 64), (1, 2, 9, 5, 6),
+               (1, 70, 70, 8, 8)]  # (B, H, W, C, O); the last two outside the TPU gate
+
+
+def _conv_inputs(cuda, shape, dtype):
+    b, h, w, c, o = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(b, h, w, c, device=cuda, generator=g).to(dtype)
+    k = (torch.randn(3, 3, c, o, device=cuda, generator=g) * (2.0 / (9 * c)) ** 0.5).to(dtype)
+    go = torch.randn(b, h, w, o, device=cuda, generator=g).to(dtype)
+    return x, k, go
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_conv_kernels_match_plain(cuda, dtype, shape):
+    from libcontinual_tpu_torch.ops import conv as C
+
+    x, k, go = _conv_inputs(cuda, shape, dtype)
+    y = C.conv3x3_cuda(x, k)
+    dx = C.conv3x3_cuda(go, C.rotate_taps(k).contiguous())
+    dw = C.conv3x3_dw_cuda(x, go)
+    torch.cuda.synchronize()
+    assert _err(y, C.conv3x3_plain(x, k)) <= TOL[dtype]
+    assert _err(dx, C.conv3x3_plain(go, C.rotate_taps(k))) <= TOL[dtype]
+    assert dw.dtype == torch.float32 and _err(dw, C.conv3x3_dw_plain(x, go)) <= TOL[torch.float32]
+
+
+def test_conv_autograd_launches_both_kernels(cuda):
+    """The backward is one forward-kernel launch (dx) and one dw launch, on
+    any image size: those the JAX package sends to XLA (H 2, H * W > 4096)
+    launch the kernels too, and match the plain versions."""
+    from libcontinual_tpu_torch.ops import conv as C
+
+    for shape in [(2, 8, 8, 16, 24), (2, 2, 8, 16, 24), (1, 65, 65, 4, 8)]:
+        x, k, go = _conv_inputs(cuda, shape, torch.float32)
+        xg, kg = x.clone().requires_grad_(), k.clone().requires_grad_()
+        C.reset_launches()
+        C.conv3x3(xg, kg).backward(go)
+        torch.cuda.synchronize()
+        assert C.LAUNCHES == {"conv3x3_fwd": 2, "conv3x3_dw": 1}
+        assert _err(xg.grad, C.conv3x3_plain(go, C.rotate_taps(k))) <= TOL[torch.float32]
+        assert _err(kg.grad, C.conv3x3_dw_plain(x, go).reshape(k.shape)) <= TOL[torch.float32]
+
+
+def test_conv_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    from libcontinual_tpu_torch.ops import conv as C
+
+    w = torch.zeros(3, 3, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="empty"):
+        C.conv3x3_cuda(torch.zeros(0, 8, 8, 4, device=cuda), w)
+    with pytest.raises(ValueError, match="empty"):
+        C.conv3x3_dw_cuda(torch.zeros(1, 0, 8, 4, device=cuda), torch.zeros(1, 0, 8, 8, device=cuda))
+    with pytest.raises(TypeError):
+        C.conv3x3_cuda(torch.zeros(1, 8, 8, 4, device=cuda, dtype=torch.float16), w.half())
+    with pytest.raises(ValueError, match="does not match"):
+        C.conv3x3_cuda(torch.zeros(1, 8, 8, 4, device=cuda), w.bfloat16())
+
+
+def test_icarl_train_step_on_the_card(cuda):
+    """One iCaRL step of the second task (CE and KD against the teacher) on a
+    bf16 resnet18 at CIFAR geometry: a finite loss, the weights and the
+    running statistics move, the teacher's statistics do not."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.methods.icarl import ICarl
+
+    cfg = Config(overrides={
+        "dataset": "synthetic", "data_root": "", "image_size": 32, "task_num": 2,
+        "init_cls_num": 4, "inc_cls_num": 4, "batch_size": 8, "dtype": "bfloat16",
+        "backbone": {"name": "resnet18", "kwargs": {}},
+        "classifier": {"name": "ICarl", "kwargs": {"num_class": 8, "feat_dim": 512}},
+        "optimizer": {"name": "SGD", "kwargs": {"lr": 0.05, "momentum": 0.9}},
+    }).get_config_dict()
+    method = ICarl(cfg, cuda)
+    state = method.init_state(0, (32, 32, 3))
+    state = method.after_task(state, 0, None)  # the teacher
+    state = method.start_task(state, 1, 4, 8)
+    state = method.reset_optimizer(state, 1)
+    batch = {"image": torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=cuda),
+             "label": torch.randint(0, 8, (8,), device=cuda), "weight": torch.ones(8, device=cuda)}
+    before = {k: v.clone() for k, v in state.params.state_dict().items()}
+    teacher = {k: v.clone() for k, v in state.mvars["teacher"].state_dict().items()}
+    state, out = method.train_step(state, batch, 0.05)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out["loss"])
+    after = state.params.state_dict()
+    assert not torch.equal(after["head.dense.weight"], before["head.dense.weight"])
+    assert not torch.equal(after["backbone.bn_stem.running_mean"],
+                           before["backbone.bn_stem.running_mean"])
+    assert all(torch.equal(v, teacher[k]) for k, v in state.mvars["teacher"].state_dict().items())

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -27,6 +28,11 @@ MODULES = [
     "libcontinual_tpu_torch.ops.attention",
     "libcontinual_tpu_torch.ops.prefix_attention",
     "libcontinual_tpu_torch.ops.masked_attention",
+    "libcontinual_tpu_torch.ops.conv",
+    "libcontinual_tpu_torch.core.buffer",
+    "libcontinual_tpu_torch.models.resnet",
+    "libcontinual_tpu_torch.methods.icarl",
+    "libcontinual_tpu_torch.methods.finetune",
     "libcontinual_tpu_torch.methods.prompt_methods",
     "libcontinual_tpu_torch.methods.dap",
     "libcontinual_tpu_torch.methods.clip_methods",
@@ -88,17 +94,26 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_real_sources_share_one_header():
-    """One library, ``attention.cu``, on the shared header, exports every
-    function the wrappers type, for all three kernel families."""
+    """Two libraries: ``attention.cu`` on the shared header, for all three
+    attention families, and ``conv.cu`` on no header (so an edit to it leaves
+    the attention library's hash alone). Each exports every function its
+    wrappers type, and nothing is typed twice."""
     from libcontinual_tpu_torch.ops import _build
 
-    assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh"]
-    with open(os.path.join(_build.CSRC_DIR, "attention.cu")) as f:
-        src = f.read()
-    assert '#include "attention_kernels.cuh"' in src
-    for fn in _build.SIGNATURES:
-        assert f'extern "C" int {fn}(' in src, fn
-    assert {fn.split("_")[1] for fn in _build.SIGNATURES} == {"qkv", "pqkv", "mqkv"}
+    assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh",
+                                                   "conv.cu"]
+    assert tuple(_build.SIGNATURES) == _build.LIBRARIES == ("attention", "conv")
+    src = {}
+    for name in _build.LIBRARIES:
+        with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
+            src[name] = f.read()
+        for fn in _build.SIGNATURES[name]:
+            assert f'extern "C" int {fn}(' in src[name], fn
+        assert len(re.findall(r'extern "C" int lct_', src[name])) == len(_build.SIGNATURES[name])
+    assert '#include "attention_kernels.cuh"' in src["attention"]
+    assert ".cuh" not in src["conv"]
+    assert {fn.split("_")[1] for fn in _build.SIGNATURES["attention"]} == {"qkv", "pqkv", "mqkv"}
+    assert {fn.split("_")[1] for fn in _build.SIGNATURES["conv"]} == {"conv3x3"}
 
 
 def test_cli_parses_overrides_without_yaml():
