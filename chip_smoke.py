@@ -47,7 +47,22 @@ which raises on failure:
      (batch 128, bf16, 32 px), with a device-time breakdown of the
      DualPrompt, MoE-Adapter4CL and iCaRL steps from ``torch.profiler``;
      and the whole 10-task iCaRL protocol of ``bench.py``'s end-to-end block
-     through the trainer: wall time and final accuracy.
+     through the trainer: wall time and final accuracy;
+  6. the generic attention op (``fused_attention``) and the Pallas
+     variants of the measurement tools, all on the kernel of
+     ``generic_attention.cuh``: the kernel and each variant against their
+     plain versions at small odd shapes (f32, bf16; Skv above and below Sq,
+     300 keys at hd 128) and at the shapes the phases below give them
+     (bf16); the path: every attention block's q, k and v and output
+     gradient, captured from one batch of 128 through the trained L2P
+     state's prompted pass (S 222) and DualPrompt's prefixed pass (Sq 197;
+     Skv 200 and 207 where the prompt keys go in front), sent through
+     ``fused_attention`` forward and backward against the packed and prefix
+     kernels' own results; timing of the kernel beside its plain version,
+     SDPA (flash and cuDNN backends) and the bound at the ViT-B/16, CLIP
+     text and one long shape, and of each variant at the tool's shape; and
+     the port's two tools, ``bench_attention`` and ``exp_flash_kernel``, at
+     their defaults, whose launches are the variants' counts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -103,10 +118,44 @@ C_TIMED = C_MAIN[1]  # the first stage: the conv kernels' numbers in the kernels
 # f32 against cuDNN's bf16), relative L2
 CONV_PATH_TOL = 1e-2
 
+# the generic attention forward (B, H, Sq, Skv, hd): small odd shapes (Skv
+# above and below Sq, 300 keys at hd 128, Sq == Skv for flash), f32 and bf16
+G_SMALL = [(2, 3, 9, 13, 8), (1, 2, 17, 5, 16), (2, 1, 33, 300, 128), (2, 3, 17, 17, 16)]
+# and at the shapes the path and tool phases launch it at, bf16, at B 16 (a
+# check covers any batch): L2P's prompted pass (S 222), DualPrompt's prefixed
+# pass (Sq 197; Skv 197, 200, 207), the tools' S 217, 197 and 222; plus the
+# long timed shape at B 2
+G_MAIN = [(16, 12, 222, 222, 64), (16, 12, 197, 197, 64), (16, 12, 197, 200, 64),
+          (16, 12, 197, 207, 64), (16, 12, 217, 217, 64), (2, 12, 1024, 1024, 128)]
+# the fast variant on bf16 scores: a sum-order difference that flips the bf16
+# rounding of one score moves that key's weight by up to 2^(2^-5) - 1 = 2.2%
+# at |s| < 8, in either dtype
+BF16SM_TOL = 3e-2
+# the generic op (P in f32) against the packed and prefix kernels (P and dS
+# rounded to bf16 before their products: a relative 2^-9 on each term) on the
+# path's own blocks, output and dq, dk, dv; relative L2
+GENERIC_PATH_TOL = 1e-2
+# exp_flash_kernel's check: flash (P and the output in bf16) against the f32
+# forward; P's rounding moves an output by up to 2^-9 max |v| (1.1e-2 at
+# |v| < 5.5, randn at these sizes) and the output's own by half an ulp
+# (3.9e-3 below 2)
+FLASH_F32_TOL = 2e-2
+# timed: (label, B, H, Sq, Skv, hd), bf16; the first is the kernels line's
+G_TIMED = [("ViT-B/16", 128, 12, 197, 197, 64), ("DualPrompt e-prefix", 128, 12, 197, 207, 64),
+           ("L2P prompted", 128, 12, 222, 222, 64), ("CLIP text, unmasked", 100, 8, 77, 77, 64),
+           ("long", 8, 12, 1024, 1024, 128)]
+G_TOOL = (128, 12, 217, 217, 64)  # tools/bench_attention.py's default
+G_FLASH = (128, 12, 197, 197, 64)  # tools/exp_flash_kernel.py's first length
+
+# the main paths of the generic kernel and of its variants in the kernels line
+GENERIC_PATH = "generic attention: L2P and DualPrompt blocks through fused_attention"
+TOOLS_PATH = "tools: bench_attention and exp_flash_kernel"
+
 # the TPU kernel each CUDA kernel replaces (its body's line) and the source
 # of the CUDA kernel
 _ATTN_CU = "libcontinual_tpu_torch/ops/csrc/attention.cu"
 _CONV_CU = "libcontinual_tpu_torch/ops/csrc/conv.cu"
+_GEN_CUH = "libcontinual_tpu_torch/ops/csrc/generic_attention.cuh"
 SOURCE_LINES = {"qkv_fwd": "libcontinual_tpu/ops/attention.py:140",
                 "qkv_bwd": "libcontinual_tpu/ops/attention.py:222",
                 "pqkv_fwd": "libcontinual_tpu/ops/attention.py:348",
@@ -114,8 +163,29 @@ SOURCE_LINES = {"qkv_fwd": "libcontinual_tpu/ops/attention.py:140",
                 "mqkv_fwd": "libcontinual_tpu/ops/attention.py:626",
                 "mqkv_bwd": "libcontinual_tpu/ops/attention.py:653",
                 "conv3x3_fwd": "libcontinual_tpu/ops/conv.py:105",
-                "conv3x3_dw": "libcontinual_tpu/ops/conv.py:153"}
+                "conv3x3_dw": "libcontinual_tpu/ops/conv.py:153",
+                "attn_fwd": "libcontinual_tpu/ops/attention.py:841",
+                "attn_fwd_v2": "tools/bench_attention.py:38",
+                "attn_fwd_fast": "tools/bench_attention.py:55",
+                "attn_fwd_mmonly": "tools/bench_attention.py:111",
+                "attn_fwd_qblock": "tools/bench_attention.py:150",
+                "attn_fwd_flash": "tools/exp_flash_kernel.py:37"}
 SOURCES = {k: _CONV_CU if k.startswith("conv") else _ATTN_CU for k in SOURCE_LINES}
+# the generic kernels: one template, gattn_kernel, in the mode of each body;
+# entries whose bodies compute one function share an instantiation
+SOURCES.update({
+    "attn_fwd": f"{_GEN_CUH} (gattn_kernel, mode kExact; exported by attention.cu)",
+    "attn_fwd_v2": f"{_GEN_CUH} (gattn_kernel, modes kV2 and kV2NoMax)",
+    "attn_fwd_fast": f"{_GEN_CUH} (gattn_kernel, modes kFast and kFastBf16)",
+    "attn_fwd_mmonly": f"{_GEN_CUH} (gattn_kernel, mode kMMOnly)",
+    "attn_fwd_qblock": f"{_GEN_CUH} (gattn_kernel, mode kFast: the instantiation of "
+                       "attn_fwd_fast, the same function)",
+    "attn_fwd_flash": f"{_GEN_CUH} (gattn_kernel, mode kV2: the instantiation of "
+                      "attn_fwd_v2 with the max, the same function on Sq == Skv)",
+})
+# the variant timed for each variant entry of the kernels line
+G_VARIANT_OF = {"attn_fwd_v2": "v2", "attn_fwd_fast": "fast", "attn_fwd_mmonly": "mmonly",
+                "attn_fwd_qblock": "qblock", "attn_fwd_flash": "flash"}
 
 # H100 SXM: HBM bandwidth and dense bf16 tensor-core peak (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -257,7 +327,11 @@ def _launches() -> dict:
 def _shape_key(kname, qkv, *rest):
     """(kernel, S, [P,] D, heads, dtype) of one attention launch, or (kernel,
     H, W, C, O, dtype) of one conv launch (x and the taps or the output
-    gradient): what a check at that shape covers, whatever the batch."""
+    gradient), or (kernel or variant, H, Sq, Skv, hd, dtype) of one generic
+    launch (q, k, ...): what a check at that shape covers, whatever the
+    batch."""
+    if kname.startswith(("attn", "variant")):
+        return (kname, *qkv.shape[1:3], rest[0].shape[2], qkv.shape[3], qkv.dtype)
     if kname.startswith("conv"):
         return (kname, *qkv.shape[1:], rest[0].shape[-1], qkv.dtype)
     s, d, heads = qkv.shape[1], qkv.shape[2] // 3, rest[-1]
@@ -276,12 +350,14 @@ def _recorded_shapes(seen: set):
                (PA, "prefix_attention_bwd_cuda", "pqkv_bwd"),
                (MA, "masked_attention_cuda", "mqkv_fwd"),
                (MA, "masked_attention_bwd_cuda", "mqkv_bwd"),
-               (C, "conv3x3_cuda", "conv3x3_fwd"), (C, "conv3x3_dw_cuda", "conv3x3_dw")]
+               (C, "conv3x3_cuda", "conv3x3_fwd"), (C, "conv3x3_dw_cuda", "conv3x3_dw"),
+               (A, "attention_cuda", "attn_fwd"), (A, "attention_variant_cuda", None)]
     saved = [getattr(mod, attr) for mod, attr, _ in wrapped]
 
     def recording(fn, kname):
         def call(*args):
-            seen.add(_shape_key(kname, *args))
+            # a variant launch is keyed by its variant (its last argument)
+            seen.add(_shape_key(kname or f"variant {args[-1]}", *args))
             return fn(*args)
         return call
 
@@ -298,6 +374,7 @@ def _recorded_shapes(seen: set):
 
 
 _MODES = {"0": "qkv", "1": "pqkv", "2": "mqkv"}
+_GEN_MODES = ("kExact", "kV2", "kV2NoMax", "kFast", "kFastBf16", "kMMOnly")
 
 
 def phase_build():
@@ -322,9 +399,14 @@ def phase_build():
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             attn = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
             conv = re.search(r"(conv3x3_\w+?_kernel)(I(f|13__nv_bfloat16)E)?", chunk)
+            gen = re.search(r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
             if not (nreg and spill):
                 continue
-            if attn:
+            if gen:
+                typ, hd, mode = gen.groups()
+                label = (f"gen   gattn_kernel {_GEN_MODES[int(mode)]:9s} "
+                         f"{'f32' if typ == 'f' else 'bf16':4s} hd {hd:3s}")
+            elif attn:
                 kind, typ, hd, mode = attn.groups()
                 label = f"{_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} hd {hd:2s}"
             elif conv:
@@ -516,6 +598,61 @@ def phase_conv_checks(dev, errs, checked):
         if shape in C_MAIN:
             errs["conv3x3_fwd"] = max(errs["conv3x3_fwd"], got["y"][0], got["dx"][0])
             errs["conv3x3_dw"] = max(errs["conv3x3_dw"], got["dw"][0])
+
+
+def _generic_inputs(shape, dtype, dev, seed, strided):
+    """q, k, v (B, H, S, hd); ``strided``: views of (B, S, H, hd) tensors, as
+    a caller's .transpose(1, 2) gives them."""
+    b, h, sq, skv, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if strided:
+        return tuple(torch.randn(b, s, h, hd, device=dev, generator=gen).to(dtype).transpose(1, 2)
+                     for s in (sq, skv, skv))
+    return tuple(torch.randn(b, h, s, hd, device=dev, generator=gen).to(dtype)
+                 for s in (sq, skv, skv))
+
+
+def _generic_tol(fn, dtype):
+    return BF16SM_TOL if fn == "fast_bf16sm" else TOL[dtype]
+
+
+def phase_generic_checks(dev, errs, checked):
+    """The generic kernel (``attention_cuda``) and each variant against their
+    plain versions (flash only on Sq == Skv); adds the ``_shape_key`` of each
+    checked launch to ``checked``, and keeps the largest error at G_MAIN's
+    shapes for the kernels line (a variant's under the entry it counts in)."""
+    A = _attention_modules()[0]
+    cases = [(shape, dtype) for shape in G_SMALL for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, torch.bfloat16) for shape in G_MAIN]
+    for i, (shape, dtype) in enumerate(cases):
+        b, h, sq, skv, hd = shape
+        scale = hd ** -0.5
+        q, k, v = _generic_inputs(shape, dtype, dev, seed=400 + i, strided=i % 2 == 1)
+        got = {}
+        for fn in ["attention", *A.VARIANTS]:
+            if fn == "flash" and sq != skv:
+                continue
+            if fn == "attention":
+                checked.add(_shape_key("attn_fwd", q, k))
+                out, ref = A.attention_cuda(q, k, v, scale), A.attention_plain(q, k, v, scale)
+            else:
+                checked.add(_shape_key(f"variant {fn}", q, k))
+                out = A.attention_variant_cuda(q, k, v, scale, fn)
+                ref = A.attention_variant_plain(q, k, v, scale, fn)
+            torch.cuda.synchronize()
+            _require(out.shape == ref.shape and out.dtype == dtype,
+                     f"generic {fn}: output {tuple(out.shape)} {out.dtype}")
+            got[fn] = _err(out, ref)
+        tag = (f"B {b} H {h} Sq {sq} Skv {skv} hd {hd} {str(dtype).split('.')[-1]} "
+               f"{'(B, S, H, hd) views' if i % 2 else 'contiguous'}")
+        print(f"[generic check] {tag}: max abs err (scaled) " + ", ".join(
+            f"{fn} {a:.3e} ({r:.3e}, tolerance {_generic_tol(fn, dtype):.1e})"
+            for fn, (a, r) in got.items()))
+        for fn, (a, r) in got.items():
+            _require(r <= _generic_tol(fn, dtype), f"generic kernel {fn} disagrees at {tag}")
+            if shape in G_MAIN:
+                key = "attn_fwd" if fn == "attention" else A.VARIANTS[fn][1]
+                errs[key] = max(errs[key], a)
 
 
 def _slice_config(name):
@@ -1023,6 +1160,150 @@ def phase_icarl_conv_path(trainer, dev, seen):
     return launches
 
 
+@contextlib.contextmanager
+def _captured_attention(blocks: list):
+    """Within it, every packed-qkv and prefix attention call of the ViT
+    appends its block's qkv, pk and pv (or None), scale and heads to
+    ``blocks``, and the output's gradient under "g" once the backward has
+    run; the calls themselves run as before."""
+    from libcontinual_tpu_torch.models import vit
+
+    names = ("fused_qkv_attention", "fused_prefix_attention")
+    saved = {n: getattr(vit, n) for n in names}
+
+    def record(out, qkv, pk, pv, scale, heads):
+        blk = {"qkv": qkv.detach(), "pk": pk, "pv": pv, "scale": scale, "heads": heads}
+        out.register_hook(lambda g: blk.__setitem__("g", g.detach()))
+        blocks.append(blk)
+        return out
+
+    def qkv_call(qkv, scale, heads):
+        return record(saved["fused_qkv_attention"](qkv, scale, heads), qkv, None, None, scale,
+                      heads)
+
+    def prefix_call(qkv, pk, pv, scale, heads):
+        out = saved["fused_prefix_attention"](qkv, pk, pv, scale, heads)
+        return record(out, qkv, pk.detach(), pv.detach(), scale, heads)
+
+    vit.fused_qkv_attention, vit.fused_prefix_attention = qkv_call, prefix_call
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(vit, n, fn)
+
+
+def capture_generic_path(trainer, dev, name, seen):
+    """One batch of 128 random 32 px images through the trained state at
+    bf16, forward and backward (the gradient of a fixed random projection of
+    the features): L2P's prompted pass (pool entries 0..k-1 prepended, S
+    222) or DualPrompt's prefixed pass (the training prefixes; blocks 0-4
+    with prompt keys and values, Skv 200 and 207). Returns its 12 blocks'
+    captured attention inputs and output gradients."""
+    state, method = trainer.state, trainer.method
+    frozen = state.mvars["frozen"]
+    imgs = np.random.RandomState(11).randint(0, 255, (128, 32, 32, 3)).astype(np.uint8)
+    x = method.augment(None, torch.from_numpy(imgs).to(dev), train=False)
+    u = _direction(dev, method.embed_dim)
+    blocks = []
+    with _recorded_shapes(seen):
+        if name == "L2P":
+            param = state.params["prompt"].prompt
+            prompts = param[: method.top_k].reshape(1, -1, param.shape[-1])
+            with _captured_attention(blocks):
+                out = frozen(x, prepend_tokens=prompts.expand(x.shape[0], -1, -1),
+                             feature_mode="prompt_mean")
+        else:
+            prompt = state.params["prompt"]
+            q = method.frozen_query(frozen, x)
+            prefix_kv, _ = method.prefixes(prompt, q, state.task, train=True)
+            with _captured_attention(blocks):
+                out = frozen(x, prefix_kv=prefix_kv)
+        (out["features"].float() @ u).sum().backward()
+    torch.cuda.synchronize()
+    state.params.zero_grad(set_to_none=True)
+    _require(len(blocks) == 12 and all("g" in blk for blk in blocks),
+             f"{name}: captured {len(blocks)} attention blocks")
+    shapes = [(blk["qkv"].shape[1], None if blk["pk"] is None else blk["pk"].shape[1])
+              for blk in blocks]
+    print(f"[generic path] {name}: captured {len(blocks)} blocks of a batch of 128, "
+          f"(S, P) {shapes}")
+    return blocks
+
+
+def _to_heads(t, heads):
+    """(B, N, D) -> a (B, H, N, hd) view."""
+    b, n, d = t.shape
+    return t.view(b, n, heads, d // heads).transpose(1, 2)
+
+
+def _from_heads(t):
+    """(B, H, N, hd) -> (B, N, D)."""
+    b, h, n, hd = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * hd)
+
+
+def phase_generic_path(captures, dev, seen):
+    """Each captured block's q, k and v through ``fused_attention``, forward
+    and backward with the block's own output gradient: q, and k and v
+    without a prefix, are (B, H, S, hd) views of the packed qkv (no copy); a
+    prefix block's pk and pv go in front of its keys and values, as the JAX
+    ViT's general path puts them (``models/vit.py:180-185``). The output and
+    dq, dk, dv agree with the packed and prefix kernels' own results on the
+    same block. Returns this run's launch counts: one ``attn_fwd`` a block."""
+    A, PA, _ = _attention_modules()
+    blocks = [blk for name in ("L2P", "DualPrompt") for blk in captures[name]]
+    refs = []
+    for blk in blocks:  # the packed and prefix kernels, forward and backward
+        qkv, g, h, scale = blk["qkv"], blk["g"], blk["heads"], blk["scale"]
+        d = qkv.shape[-1] // 3
+        x = qkv.clone().requires_grad_()
+        if blk["pk"] is None:
+            o = A.fused_qkv_attention(x, scale, h)
+            o.backward(g)
+            dk, dv = x.grad[..., d:2 * d], x.grad[..., 2 * d:]
+        else:
+            pk, pv = (t.clone().requires_grad_() for t in (blk["pk"], blk["pv"]))
+            o = PA.fused_prefix_attention(x, pk, pv, scale, h)
+            o.backward(g)
+            dk = torch.cat([pk.grad, x.grad[..., d:2 * d]], dim=1)
+            dv = torch.cat([pv.grad, x.grad[..., 2 * d:]], dim=1)
+        refs.append((o.detach(), x.grad[..., :d], dk, dv))
+
+    _reset_launches()
+    outs = []
+    with _recorded_shapes(seen):
+        for blk in blocks:
+            qkv, g, h, scale = blk["qkv"], blk["g"], blk["heads"], blk["scale"]
+            d = qkv.shape[-1] // 3
+            k, v = qkv[..., d:2 * d], qkv[..., 2 * d:]
+            if blk["pk"] is not None:
+                k, v = torch.cat([blk["pk"], k], dim=1), torch.cat([blk["pv"], v], dim=1)
+            q, k, v = (_to_heads(t, h).detach().requires_grad_() for t in (qkv[..., :d], k, v))
+            o = A.fused_attention(q, k, v, scale)
+            o.backward(_to_heads(g, h))
+            outs.append(tuple(_from_heads(t) for t in (o.detach(), q.grad, k.grad, v.grad)))
+    torch.cuda.synchronize()
+    launches = _launches()
+    print(f"[generic path] launches for the 24 blocks: {launches}")
+    _require(launches["attn_fwd"] == len(blocks) == 24 and sum(launches.values()) == 24,
+             f"generic path launched {launches}")
+
+    worst = dict.fromkeys(("output", "dq", "dk", "dv"), 0.0)
+    for i, (blk, got, ref) in enumerate(zip(blocks, outs, refs)):
+        err = {n: _rel_l2(a, r) for n, a, r in zip(worst, got, ref)}
+        tag = (f"{'L2P' if i < 12 else 'DualPrompt'} block {i % 12} (Sq {blk['qkv'].shape[1]}, "
+               f"Skv {got[2].shape[1]})")
+        print(f"[generic path] {tag}: relative L2 against the "
+              f"{'packed' if blk['pk'] is None else 'prefix'} kernels: " + ", ".join(
+                  f"{n} {e:.3e}" for n, e in err.items()) + f" (tolerance {GENERIC_PATH_TOL})")
+        for n, e in err.items():
+            worst[n] = max(worst[n], e)
+            _require(np.isfinite(e) and e <= GENERIC_PATH_TOL, f"generic path {tag}: {n} disagrees")
+    print(f"[generic path] worst relative L2 over the 24 blocks: {worst}")
+    return launches
+
+
 def _time_cuda(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -1069,8 +1350,9 @@ def _time_pair(label, runs, card, library="sdpa"):
     best = {k: min(v) for k, v in times.items()}
     others = "".join(f", {library} {k} {best[k]:.4f} ms" for k in runs
                      if k not in ("kernel", "plain", "library"))
+    lib = f"{library} {best['library']:.4f} ms" if "library" in best else f"no {library} call"
     print(f"[timing] {label}: kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms, "
-          f"{library} {best['library']:.4f} ms{others} (all runs "
+          f"{lib}{others} (all runs "
           f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}) [{card}]")
     return best
 
@@ -1176,24 +1458,108 @@ def phase_kernel_timing(dev, card):
         (f_ms, f_by), (b_ms, b_by) = _pqkv_bounds(b, s, other, d, h)
         print(f"[bound] pqkv at P {other}: forward {f_ms * 1e3:.1f} us ({f_by}), "
               f"backward {b_ms * 1e3:.1f} us ({b_by})")
-    print_unported_bounds()
     return out
 
 
-def print_unported_bounds():
-    """The bounds of the TPU kernels no ported path runs yet, in bf16 (q, k
-    and v read once, o written once): the generic attention forward
-    ``_attention_kernel`` at ViT-B/16's (B 128, H 12, S 197, hd 64), its
-    measurement variants of ``tools/bench_attention.py`` at that tool's
-    default (S 217), and ``tools/exp_flash_kernel.py``'s grouped-head
-    forward at its two lengths (S 197 and 222)."""
-    b, h, hd = 128, 12, 64
-    for what, s in (("_attention_kernel (row 7)", 197),
-                    ("tools/bench_attention.py variants (row 10)", 217),
-                    ("tools/exp_flash_kernel.py fwd_kernel (row 11)", 197),
-                    ("tools/exp_flash_kernel.py fwd_kernel (row 11)", 222)):
-        ms, by = _bound(2 * 4 * b * s * h * hd, 4 * b * h * s * s * hd)
-        print(f"[bound] {what} at B {b} H {h} S {s} hd {hd}: {ms * 1e3:.1f} us ({by})")
+def _generic_bound(b, h, sq, skv, hd):
+    """Bound of one bf16 generic forward: q, k, v read and o written once;
+    two products over Sq x Skv."""
+    return _bound(2 * b * h * hd * (2 * sq + 2 * skv), 4 * b * h * sq * skv * hd)
+
+
+def _sdpa_backends(q, k, v, scale):
+    """{name: SDPA on that backend} for the backends that take these inputs
+    (flash, cuDNN); the others are reported and left out."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    runs = {}
+    for name, backend in (("sdpa_flash", SDPBackend.FLASH_ATTENTION),
+                          ("sdpa_cudnn", SDPBackend.CUDNN_ATTENTION)):
+        def run(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
+        try:
+            run()
+            torch.cuda.synchronize()
+            runs[name] = run
+        except RuntimeError as e:
+            print(f"[timing] {name} does not take B {q.shape[0]} H {q.shape[1]} Sq {q.shape[2]} "
+                  f"Skv {k.shape[2]} hd {q.shape[3]}: {str(e).splitlines()[0][:120]}")
+    return runs
+
+
+def _time_generic(label, shape, kernel, plain, card, library=True):
+    """The kernel beside its plain version and (``library``) SDPA on the
+    flash and cuDNN backends, bf16, contiguous inputs; returns (best times,
+    bound). The library time is the faster backend's."""
+    b, h, sq, skv, hd = shape
+    q, k, v = _generic_inputs(shape, torch.bfloat16, dev=torch.device("cuda", 0), seed=9,
+                              strided=False)
+    scale = hd ** -0.5
+    sdpa = _sdpa_backends(q, k, v, scale) if library else {}
+    runs = {"plain": lambda: plain(q, k, v, scale)}
+    first = next(iter(sdpa), None)
+    if first:
+        runs["library"] = sdpa[first]
+    runs.update({n: fn for n, fn in sdpa.items() if n != first})
+    runs["kernel"] = lambda: kernel(q, k, v, scale)
+    best = _time_pair(f"{label} at B {b} H {h} Sq {sq} Skv {skv} hd {hd} bf16 (sdpa: "
+                      f"{first or 'none'})", runs, card)
+    lib_ms = {n: best["library" if n == first else n] for n in sdpa}
+    fastest = min(lib_ms, key=lib_ms.get) if lib_ms else None
+    best["library"], best["library_name"] = lib_ms.get(fastest), fastest
+    bound = _generic_bound(*shape)
+    ratios = ", ".join(f"{best['kernel'] / ms:.1f}x {n}" for n, ms in lib_ms.items())
+    print(f"[bound] {label}: {bound[0] * 1e3:.1f} us ({bound[1]}); kernel "
+          f"{best['kernel'] / bound[0]:.1f}x the bound, {ratios or 'no SDPA call'}")
+    return best, bound
+
+
+def phase_generic_timing(dev, card):
+    """``attn_fwd`` at the G_TIMED shapes, and each variant at the tool's
+    (flash at exp_flash_kernel's S 197), beside plain, SDPA and the bound.
+    Returns {kernels-line name: (best times, bound)}."""
+    A = _attention_modules()[0]
+    out = {}
+    for i, (label, *shape) in enumerate(G_TIMED):
+        res = _time_generic(f"attn_fwd {label}", tuple(shape), A.attention_cuda,
+                            A.attention_plain, card)
+        if i == 0:
+            out["attn_fwd"] = res
+        torch.cuda.empty_cache()
+    for key, variant in G_VARIANT_OF.items():
+        shape = G_FLASH if variant == "flash" else G_TOOL
+        kernel = lambda q, k, v, scale, variant=variant: A.attention_variant_cuda(  # noqa: E731
+            q, k, v, scale, variant)
+        plain = lambda q, k, v, scale, variant=variant: A.attention_variant_plain(  # noqa: E731
+            q, k, v, scale, variant)
+        # mmonly computes no softmax: no library call computes its function
+        out[key] = _time_generic(f"{key} ({variant})", shape, kernel, plain, card,
+                                 library=variant != "mmonly")
+    return out
+
+
+def phase_generic_tools(seen):
+    """The port's two measurement tools at their defaults, on the card:
+    ``bench_attention`` (B 128, H 12, S 217, D 64) and ``exp_flash_kernel``
+    (S 197 and 222). Returns their launch counts; every CUDA candidate must
+    run."""
+    from libcontinual_tpu_torch.tools import bench_attention, exp_flash_kernel
+
+    _reset_launches()
+    with _recorded_shapes(seen):
+        print("[tools] python -m libcontinual_tpu_torch.tools.bench_attention", flush=True)
+        bench = bench_attention.main([])
+        print("[tools] python -m libcontinual_tpu_torch.tools.exp_flash_kernel", flush=True)
+        flash = exp_flash_kernel.main([])
+    torch.cuda.synchronize()
+    launches = _launches()
+    print(f"[tools] kernel launches in the two tools: {launches}")
+    failed = {n: r for n, r in bench.items() if not n.startswith("sdpa_") and "ms" not in r}
+    _require(not failed, f"bench_attention candidates failed: {failed}")
+    _require(all(r["err"] <= FLASH_F32_TOL for r in flash.values()),
+             f"exp_flash_kernel: flash disagrees with the f32 forward: {flash}")
+    return launches
 
 
 def _conv_bounds(b, h, w, c, o):
@@ -1420,8 +1786,11 @@ def main() -> int:
     phase_prefix_checks(dev, errs, checked)
     phase_masked_checks(dev, errs, checked)
     phase_conv_checks(dev, errs, checked)
+    t_gen = time.perf_counter()
+    phase_generic_checks(dev, errs, checked)
+    t_generic = time.perf_counter() - t_gen
 
-    launches = {}
+    launches, captures = {}, {}
     for name in ("L2P", "DualPrompt", "CodaPrompt", "DAP", "MoE_Adapter4CL", "RAPF"):
         trainer, launches[name], _, _ = phase_slice(dev, name, seen)
         if name in ("L2P", "DAP"):
@@ -1430,12 +1799,22 @@ def main() -> int:
             phase_prefix_slice_reference(trainer, dev)
         elif name == "MoE_Adapter4CL":
             phase_clip_reference(trainer, dev)
+        if name in ("L2P", "DualPrompt"):
+            t_gen = time.perf_counter()
+            captures[name] = capture_generic_path(trainer, dev, name, seen)
+            t_generic += time.perf_counter() - t_gen
         del trainer
         torch.cuda.empty_cache()
     trainer = phase_icarl_slice(dev)
     launches["iCaRL_resnet18 conv3x3"] = phase_icarl_conv_path(trainer, dev, seen)
     del trainer
     torch.cuda.empty_cache()
+    t_gen = time.perf_counter()
+    launches[GENERIC_PATH] = phase_generic_path(captures, dev, seen)
+    del captures
+    torch.cuda.empty_cache()
+    launches[TOOLS_PATH] = phase_generic_tools(seen)
+    t_generic += time.perf_counter() - t_gen
     # every shape the slices gave a kernel was checked against the plain version
     print(f"[slices] kernel shapes launched (kernel, S, [P,] D, heads, dtype; or kernel, H, W, "
           f"C, O, dtype): {sorted(map(str, seen))}")
@@ -1445,6 +1824,11 @@ def main() -> int:
     conv_times = phase_conv_timing(dev, card)
     fwd, bound_fwd, dw, bound_dw = conv_times[C_TIMED]
     times["conv3x3_fwd"], times["conv3x3_dw"] = (fwd, bound_fwd), (dw, bound_dw)
+    t_gen = time.perf_counter()
+    times.update(phase_generic_timing(dev, card))
+    t_generic += time.perf_counter() - t_gen
+    print(f"[env] the generic attention phases (checks, capture, path, tools, timing) in "
+          f"{t_generic:.1f} s")
     phase_step_timing(dev, card, "L2P")
     phase_step_timing(dev, card, "DualPrompt", profile=True)
     phase_step_timing(dev, card, "MoE_Adapter4CL", profile=True)
@@ -1456,10 +1840,13 @@ def main() -> int:
     for kname, line in SOURCE_LINES.items():
         best, (bound_ms, by) = times[kname]
         # the main path of each kernel: MoE-Adapter4CL runs the qkv and masked
-        # kernels, DualPrompt the prefix kernels, and the trained iCaRL
-        # resnet18's convolutions the conv kernels
+        # kernels, DualPrompt the prefix kernels, the trained iCaRL
+        # resnet18's convolutions the conv kernels, the captured L2P and
+        # DualPrompt blocks the generic kernel, and the two tools its variants
         path = ("DualPrompt" if kname.startswith("pqkv") else
-                "iCaRL_resnet18 conv3x3" if kname.startswith("conv") else "MoE_Adapter4CL")
+                "iCaRL_resnet18 conv3x3" if kname.startswith("conv") else
+                GENERIC_PATH if kname == "attn_fwd" else
+                TOOLS_PATH if kname.startswith("attn_fwd_") else "MoE_Adapter4CL")
         entry = {
             "name": kname, "route": "cuda", "source": SOURCES[kname], "replaces": line,
             "launches": launches[path][kname], "main_path": path,
@@ -1472,6 +1859,11 @@ def main() -> int:
             b, h, w, c, o = C_TIMED
             entry["library"] = "cuDNN"
             entry["shape"] = f"B {b} {h}x{w} C {c} -> O {o} bf16"
+        elif kname.startswith("attn"):
+            b, h, sq, skv, hd = (G_TIMED[0][1:] if kname == "attn_fwd" else
+                                 G_FLASH if kname == "attn_fwd_flash" else G_TOOL)
+            entry["library"] = best["library_name"] and f"SDPA ({best['library_name']})"
+            entry["shape"] = f"B {b} H {h} Sq {sq} Skv {skv} hd {hd} bf16"
         kernels.append(entry)
     for k in kernels:
         _require(k["launches"] > 0, f"{k['name']} was not launched on the main path")

@@ -3,7 +3,7 @@
 Each source ``csrc/<name>.cu`` of :data:`LIBRARIES` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``: ``attention.cu`` (the packed-qkv, prefix and masked attention
-kernels) and ``conv.cu`` (the 3x3 convolution and its weight gradient). A
+kernels, and the generic attention forward) and ``conv.cu`` (the 3x3 convolution and its weight gradient). A
 library is built at its first use (never at import), into
 ``build/libcontinual_tpu_torch/`` under the repository root, and its file
 name carries a hash of the source, of every shared header in ``csrc/``
@@ -49,6 +49,8 @@ SIGNATURES = {
         "lct_mqkv_max_seq": [],
         "lct_mqkv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "lct_mqkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "lct_attn_max_head_dim": [],
+        "lct_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_LL] * 9, _I, _I, _F, _P],
     },
     "conv": {
         "lct_conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -52,7 +52,7 @@ def test_autograd_function_launches_both_kernels(cuda):
     qkv = torch.randn(2, 9, 3 * 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     T.reset_launches()
     T.fused_qkv_attention(qkv, 0.25, 4).float().sum().backward()
-    assert T.LAUNCHES == {"qkv_fwd": 1, "qkv_bwd": 1}
+    assert T.LAUNCHES == {**dict.fromkeys(T.LAUNCHES, 0), "qkv_fwd": 1, "qkv_bwd": 1}
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
@@ -280,3 +280,78 @@ def test_icarl_train_step_on_the_card(cuda):
     assert not torch.equal(after["backbone.bn_stem.running_mean"],
                            before["backbone.bn_stem.running_mean"])
     assert all(torch.equal(v, teacher[k]) for k, v in state.mvars["teacher"].state_dict().items())
+
+
+# ------------------------------------------------ generic attention forward
+
+#: the bf16-score variant (fast_bf16sm): a sum-order difference that flips
+#: the bf16 rounding of one score moves that key's weight by up to
+#: 2^(2^-5) - 1 = 2.2% at |s| < 8, in either dtype
+BF16SM_TOL = 3e-2
+# (B, H, Sq, Skv, hd): Skv > Sq, Skv < Sq, Skv past 256 keys at hd 128, Sq == Skv
+G_SHAPES = [(2, 3, 9, 13, 8), (1, 2, 17, 5, 16), (2, 1, 33, 300, 128), (2, 3, 70, 70, 32)]
+G_CASES = [(shape, fn) for shape in G_SHAPES
+           for fn in ["attention", *T.VARIANTS] if fn != "flash" or shape[2] == shape[3]]
+
+
+def _generic_inputs(cuda, shape, dtype, seed=2):
+    """q, k, v as (B, H, S, hd) views of (B, S, H, hd) tensors (strided, as
+    a caller's .transpose(1, 2) gives them)."""
+    b, h, sq, skv, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(b, s, h, hd, device=cuda, generator=g).to(dtype).transpose(1, 2)
+                 for s in (sq, skv, skv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", G_CASES)
+def test_generic_kernel_and_variants_match_plain(cuda, dtype, case):
+    shape, fn = case
+    q, k, v = _generic_inputs(cuda, shape, dtype)
+    scale = shape[-1] ** -0.5
+    if fn == "attention":
+        out, ref = T.attention_cuda(q, k, v, scale), T.attention_plain(q, k, v, scale)
+    else:
+        out = T.attention_variant_cuda(q, k, v, scale, fn)
+        ref = T.attention_variant_plain(q, k, v, scale, fn)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == dtype and out.is_contiguous()
+    assert _err(out, ref) <= (BF16SM_TOL if fn == "fast_bf16sm" else TOL[dtype])
+
+
+def test_generic_autograd_launches_the_kernel_never_the_plain_version(cuda, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("the plain forward ran on a CUDA tensor")
+
+    monkeypatch.setattr(T, "attention_plain", refuse)
+    q, k, v = (t.detach().requires_grad_() for t in
+               _generic_inputs(cuda, (2, 3, 9, 13, 64), torch.bfloat16))
+    go = torch.randn(2, 3, 9, 64, device=cuda, dtype=torch.bfloat16)
+    T.reset_launches()
+    out = T.fused_attention(q, k, v)
+    out.backward(go)
+    assert T.LAUNCHES == {**dict.fromkeys(T.LAUNCHES, 0), "attn_fwd": 1}
+    T.attention(q, k, v, 0.3)
+    assert T.LAUNCHES["attn_fwd"] == 2
+    ref = T.attention_bwd(q.detach(), k.detach(), v.detach(), go, 64 ** -0.5)
+    for leaf, r in zip((q, k, v), ref):
+        assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, r)
+
+
+def test_generic_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    q, k, v = _generic_inputs(cuda, (1, 2, 5, 7, 160), torch.float32)
+    with pytest.raises(ValueError, match="head dim 160"):
+        T.fused_attention(q, k, v)
+    q, k, v = _generic_inputs(cuda, (1, 2, 5, 7, 64), torch.float16)
+    with pytest.raises(TypeError, match="not supported"):
+        T.fused_attention(q, k, v)
+    with pytest.raises(TypeError, match="not supported"):
+        T.attention_variant_cuda(q, k, v, 0.1, "v2")
+    q, k, v = _generic_inputs(cuda, (1, 2, 5, 7, 64), torch.float32)
+    every_other = torch.randn(1, 2, 5, 128, device=cuda)[..., ::2]  # head dim stride 2
+    with pytest.raises(ValueError, match="contiguous"):
+        T.attention_cuda(every_other, k[:, :, :5], v[:, :, :5], 0.1)
+    with pytest.raises(ValueError, match="expected q"):
+        T.attention_cuda(q, k, v[:, :, :3], 0.1)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        T.attention_variant_cuda(q, k, v, 0.1, "flash")

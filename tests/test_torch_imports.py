@@ -40,6 +40,8 @@ MODULES = [
     "libcontinual_tpu_torch.models.tokenizer",
     "libcontinual_tpu_torch.data.continual",
     "libcontinual_tpu_torch.config",
+    "libcontinual_tpu_torch.tools.bench_attention",
+    "libcontinual_tpu_torch.tools.exp_flash_kernel",
 ]
 
 
@@ -94,14 +96,14 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_real_sources_share_one_header():
-    """Two libraries: ``attention.cu`` on the shared header, for all three
-    attention families, and ``conv.cu`` on no header (so an edit to it leaves
-    the attention library's hash alone). Each exports every function its
-    wrappers type, and nothing is typed twice."""
+    """Two libraries: ``attention.cu`` on the shared headers, for the three
+    packed attention families and the generic forward, and ``conv.cu`` on no
+    header. Each exports every function its wrappers type, and nothing is
+    typed twice."""
     from libcontinual_tpu_torch.ops import _build
 
     assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh",
-                                                   "conv.cu"]
+                                                   "conv.cu", "generic_attention.cuh"]
     assert tuple(_build.SIGNATURES) == _build.LIBRARIES == ("attention", "conv")
     src = {}
     for name in _build.LIBRARIES:
@@ -111,8 +113,10 @@ def test_real_sources_share_one_header():
             assert f'extern "C" int {fn}(' in src[name], fn
         assert len(re.findall(r'extern "C" int lct_', src[name])) == len(_build.SIGNATURES[name])
     assert '#include "attention_kernels.cuh"' in src["attention"]
+    assert '#include "generic_attention.cuh"' in src["attention"]
     assert ".cuh" not in src["conv"]
-    assert {fn.split("_")[1] for fn in _build.SIGNATURES["attention"]} == {"qkv", "pqkv", "mqkv"}
+    assert {fn.split("_")[1] for fn in _build.SIGNATURES["attention"]} == {"qkv", "pqkv", "mqkv",
+                                                                            "attn"}
     assert {fn.split("_")[1] for fn in _build.SIGNATURES["conv"]} == {"conv3x3"}
 
 
