@@ -9,7 +9,8 @@ which raises on failure:
   1. environment: torch, CUDA, the card's name and power limit;
   2. build: the kernel libraries ``libcontinual_tpu_torch/ops/csrc/attention.cu``
      and ``conv.cu`` (one ``nvcc`` each, started together), with their ptxas
-     reports;
+     reports, and the count of HMMA instructions (tensor-core products) in
+     the SASS of each bf16 packed forward (none in the f32 ones);
   3. kernel checks, forward and backward, against the plain PyTorch versions:
      the packed-qkv kernels at a small odd shape (f32, bf16) and at the
      slices' shapes (B 16, S 197, 202 and 222, D 768, 12 heads, bf16); the
@@ -18,7 +19,9 @@ which raises on failure:
      broadcast over the batch (batch stride 0) and with one that differs per
      image; the masked kernels at small odd shapes (S 17 and 77, f32 and
      bf16, with the causal mask and with a random finite one) and at the
-     CLIP text tower's (B 16, S 77, D 512, 8 heads, bf16, causal); the 3x3
+     CLIP text tower's (B 16, S 77, D 512, 8 heads, bf16, causal); all three
+     families also past the first kernels' limits (``LONG``, ``P_LONG``,
+     ``M_LONG``: S 300 at hd 128, 257 keys, hd 48 and 20); the 3x3
      convolution kernels (y, dx through the forward kernel on the rotated
      taps, and dw) at small odd shapes (f32, bf16, C 3 and 20, a 4 x 4 image)
      and at resnet18's CIFAR stem and four stages at B 128 (bf16);
@@ -39,12 +42,13 @@ which raises on failure:
      ``conv3x3`` (the kernels), which must agree with the modules' own cuDNN
      results (y, dx, dw);
   5. timing: each attention kernel against its plain version and against
-     ``scaled_dot_product_attention``, and each conv kernel against its
+     ``scaled_dot_product_attention`` on the flash and cuDNN backends, and
+     each conv kernel against its
      plain version and cuDNN (the yardsticks, which the port never calls) at
      the main path's shapes; the L2P, DualPrompt and MoE-Adapter4CL train
      steps at the bench geometry (batch 128, bf16, 32 -> 224) with the
      kernels and with the plain attention, and the iCaRL / resnet18 step
-     (batch 128, bf16, 32 px), with a device-time breakdown of the
+     (batch 128, bf16, 32 px), with a device-time breakdown of the L2P,
      DualPrompt, MoE-Adapter4CL and iCaRL steps from ``torch.profiler``;
      and the whole 10-task iCaRL protocol of ``bench.py``'s end-to-end block
      through the trainer: wall time and final accuracy;
@@ -73,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import re
 import subprocess
 import sys
@@ -104,6 +109,18 @@ P_TIMED = (128, 197, 10, 768, 12)
 M_SMALL = [(2, 17, 64, 4), (2, 77, 64, 4)]  # (B, S, D, heads)
 M_MAIN = [(16, 77, 512, 8)]  # the CLIP text tower: context 77, width 512, 8 heads
 M_TIMED = (100, 77, 512, 8)  # MoE-Adapter4CL encodes the prompts of all 100 classes a step
+# past the 256 keys and the 16/32/64 head dims of the packed kernels' first
+# version (no slice reaches them yet): S 300 at hd 128, S 260 at hd 48, and
+# hd 20, whose 40-byte rows the forward stages element by element. Prefix:
+# P + S = 257 at hd 128 with a broadcast prompt, P 70 (the second key tile
+# straddles P) in f32, hd 48. Every key count is no multiple of 64.
+LONG = [((1, 300, 256, 2), torch.float32), ((1, 300, 256, 2), torch.bfloat16),
+        ((2, 260, 144, 3), torch.bfloat16), ((2, 33, 60, 3), torch.bfloat16)]
+P_LONG = [((2, 250, 7, 256, 2), torch.bfloat16, "broadcast"),
+          ((2, 230, 70, 128, 2), torch.float32, "image"),
+          ((2, 260, 4, 144, 3), torch.bfloat16, "image")]
+M_LONG = [((1, 300, 256, 2), torch.bfloat16, "causal"), ((2, 260, 144, 3), torch.float32, "random"),
+          ((2, 33, 60, 3), torch.bfloat16, "causal")]
 
 # the 3x3 convolution (B, H, W, C, O): small odd shapes, and resnet18's CIFAR
 # stem and four stages at batch 128 (bf16), the shapes its iCaRL path gives
@@ -415,6 +432,28 @@ def phase_build():
             else:
                 continue
             print(f"[build]   {label}: {nreg.group(1)} registers, {spill.group(1)} bytes spill stores")
+    _check_tensor_cores(_build)
+
+
+def _check_tensor_cores(_build):
+    """The bf16 attn_fwd_kernel instantiations run HMMA (the tensor cores'
+    mma.sync) in the built library's SASS, and the f32 ones none (CUDA-core
+    FMA: no TF32), as ``cuobjdump -sass`` shows."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path("attention")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hmma = {}
+    for fn in sass.split("Function : ")[1:]:
+        m = re.search(r"lct\d+attn_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", fn.split()[0])
+        if m:
+            hmma[m.groups()] = len(re.findall(r"\bHMMA\.", fn))
+    bf16 = {k: n for k, n in hmma.items() if k[0] != "f"}
+    f32 = {k: n for k, n in hmma.items() if k[0] == "f"}
+    print(f"[build] SASS: HMMA instructions in each bf16 attn_fwd_kernel (mode, hd): "
+          f"{ {(int(k[2]), int(k[1])): n for k, n in sorted(bf16.items())} }; in the f32 ones: "
+          f"{sorted(set(f32.values()))}")
+    _require(len(bf16) == len(f32) == 12 and all(bf16.values()) and not any(f32.values()),
+             "the bf16 forward does not run on the tensor cores, or the f32 one does")
 
 
 def _inputs(shape, dtype, dev, seed):
@@ -430,7 +469,7 @@ def phase_checks(dev, errs, checked):
     ``_shape_key`` of each checked shape to ``checked``."""
     A, _, _ = _attention_modules()
     cases = [(SMALL, torch.float32), (SMALL, torch.bfloat16)]
-    cases += [(shape, torch.bfloat16) for shape in MAIN]
+    cases += [(shape, torch.bfloat16) for shape in MAIN] + LONG
     for i, (shape, dtype) in enumerate(cases):
         b, s, d, h = shape
         scale = (d // h) ** -0.5
@@ -475,7 +514,7 @@ def phase_prefix_checks(dev, errs, checked):
     cases = [(P_SMALL, torch.float32, "image"), (P_SMALL, torch.bfloat16, "image"),
              (P_SMALL, torch.float32, "broadcast")]
     cases += [(shape, torch.bfloat16, "image") for shape in P_MAIN]
-    cases += [(P_MAIN[0], torch.bfloat16, "broadcast")]
+    cases += [(P_MAIN[0], torch.bfloat16, "broadcast")] + P_LONG
     for i, (shape, dtype, layout) in enumerate(cases):
         b, s, p, d, h = shape
         scale = (d // h) ** -0.5
@@ -536,7 +575,7 @@ def phase_masked_checks(dev, errs, checked):
     _, _, MA = _attention_modules()
     cases = [(shape, dtype, kind) for shape in M_SMALL for dtype in (torch.float32, torch.bfloat16)
              for kind in ("causal", "random")]
-    cases += [(shape, torch.bfloat16, "causal") for shape in M_MAIN]
+    cases += [(shape, torch.bfloat16, "causal") for shape in M_MAIN] + M_LONG
     for i, (shape, dtype, kind) in enumerate(cases):
         b, s, d, h = shape
         scale = (d // h) ** -0.5
@@ -1348,29 +1387,85 @@ def _time_pair(label, runs, card, library="sdpa"):
     for k in order:
         times[k].append(_time_cuda(runs[k]))
     best = {k: min(v) for k, v in times.items()}
-    others = "".join(f", {library} {k} {best[k]:.4f} ms" for k in runs
+    others = "".join(f", {k} {best[k]:.4f} ms" for k in runs
                      if k not in ("kernel", "plain", "library"))
-    lib = f"{library} {best['library']:.4f} ms" if "library" in best else f"no {library} call"
-    print(f"[timing] {label}: kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms, "
+    lib = f", {library} {best['library']:.4f} ms" if "library" in best else ""
+    if not lib and not others:
+        lib = f", no {library} call"
+    print(f"[timing] {label}: kernel {best['kernel']:.4f} ms, plain {best['plain']:.4f} ms"
           f"{lib}{others} (all runs "
           f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}) [{card}]")
     return best
 
 
-def _sdpa_runs(q, k, v, go_h, scale, **mask):
-    """SDPA forward, and its backward alone (forward + backward minus the
-    forward, measured by the caller); inputs built outside the timed window.
-    ``mask``: SDPA's ``attn_mask`` or ``is_causal``."""
+def _sdpa_runs(q, k, v, go_h, scale, backends, **mask):
+    """{name: (forward, forward + backward)} of SDPA on each of ``backends``
+    ({name: SDPBackend, or None for PyTorch's own choice}) that takes these
+    inputs (the others are reported and left out); inputs built outside the
+    timed window. ``go_h`` None: the forward alone (forward + backward is
+    None). ``mask``: SDPA's ``attn_mask`` or ``is_causal``."""
+    from torch.nn.attention import sdpa_kernel
+
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    runs = {}
+    for name, backend in backends.items():
+        def within(fn, backend=backend):
+            def call():
+                with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
+                    return fn()
+            return call
 
-    def fwd():
-        return F.scaled_dot_product_attention(q, k, v, scale=scale, **mask)
+        fwd = within(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale, **mask))
+        fwd_bwd = within(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **mask), (qg, kg, vg), go_h))
+        if go_h is None:
+            fwd_bwd = None
+        try:
+            fwd()
+            if fwd_bwd is not None:
+                fwd_bwd()
+            torch.cuda.synchronize()
+            runs[name] = (fwd, fwd_bwd)
+        except RuntimeError as e:
+            print(f"[timing] {name} does not take B {q.shape[0]} H {q.shape[1]} Sq {q.shape[2]} "
+                  f"Skv {k.shape[2]} hd {q.shape[3]} {sorted(mask)}: "
+                  f"{str(e).splitlines()[0][:120]}")
+    return runs
 
-    def fwd_bwd():
-        out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale, **mask)
-        return torch.autograd.grad(out, (qg, kg, vg), go_h)
 
-    return fwd, fwd_bwd
+def _flash_and_cudnn():
+    from torch.nn.attention import SDPBackend
+
+    return {"sdpa_flash": SDPBackend.FLASH_ATTENTION, "sdpa_cudnn": SDPBackend.CUDNN_ATTENTION}
+
+
+def _set_library(best, names):
+    """``best["library"]`` and ``best["library_name"]``: the time and the
+    name of the fastest of the SDPA runs ``names`` (None without one)."""
+    fastest = min(names, key=best.get) if names else None
+    best["library"] = best[fastest] if fastest else None
+    best["library_name"] = fastest
+
+
+def _time_family(name, tag, kernels, plains, sdpa, card):
+    """The forward and backward kernels of one family (``kernels`` and
+    ``plains``: (forward, backward) functions) beside their plain versions
+    and every SDPA run of ``sdpa`` ({name: (forward, forward + backward)}),
+    each timed by ``_time_pair``; SDPA's backward is its forward + backward
+    minus its forward. Returns the forward's and the backward's best times,
+    each with the fastest SDPA time under "library" and its name under
+    "library_name"."""
+    fwd = _time_pair(f"{name}_fwd at {tag}", {
+        "plain": plains[0], **{n: f for n, (f, _) in sdpa.items()}, "kernel": kernels[0]}, card)
+    bwd = _time_pair(f"{name}_bwd at {tag} (SDPA: forward + backward)", {
+        "plain": plains[1], **{n: fb for n, (_, fb) in sdpa.items()}, "kernel": kernels[1]}, card)
+    for n in sdpa:
+        bwd[n] -= fwd[n]
+    print(f"[timing] {name}_bwd SDPA backward alone (forward + backward minus forward): "
+          + ", ".join(f"{n} {bwd[n]:.4f} ms" for n in sdpa) + f" [{card}]")
+    for best in (fwd, bwd):
+        _set_library(best, list(sdpa))
+    return fwd, bwd
 
 
 def _mqkv_bounds(b, s, d, h):
@@ -1383,6 +1478,11 @@ def _mqkv_bounds(b, s, d, h):
 
 
 def phase_kernel_timing(dev, card):
+    """The packed, prefix and masked kernels, forward and backward, at the
+    main path's timed shapes (bf16), beside plain, SDPA on the flash and
+    cuDNN backends (the masked family: with ``is_causal``, and PyTorch's own
+    choice with the float mask) and the bound. Returns {kernels-line name:
+    (best times, bound)}."""
     A, PA, MA = _attention_modules()
     out = {}
     # packed qkv at the L2P prompted pass
@@ -1390,21 +1490,16 @@ def phase_kernel_timing(dev, card):
     scale = (d // h) ** -0.5
     qkv, go = _inputs(TIMED, torch.bfloat16, dev, seed=7)
     q, k, v = (_heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3))
-    sdpa_fwd, sdpa_fb = _sdpa_runs(q, k, v, _heads(go, h), scale)
-    tag = f"B {b} S {s} D {d} H {h} bf16"
-    fwd = _time_pair(f"qkv_fwd at {tag}", {
-        "plain": lambda: A.qkv_attention_plain(qkv, scale, h),
-        "library": sdpa_fwd,
-        "kernel": lambda: A.qkv_attention_cuda(qkv, scale, h)}, card)
-    bwd = _time_pair(f"qkv_bwd at {tag} (sdpa: forward + backward)", {
-        "plain": lambda: A.qkv_attention_bwd_plain(qkv, go, scale, h),
-        "library": sdpa_fb,
-        "kernel": lambda: A.qkv_attention_bwd_cuda(qkv, go, scale, h)}, card)
-    bwd["library"] -= fwd["library"]
+    sdpa = _sdpa_runs(q, k, v, _heads(go, h), scale, _flash_and_cudnn())
+    fwd, bwd = _time_family("qkv", f"B {b} S {s} D {d} H {h} bf16", (
+        lambda: A.qkv_attention_cuda(qkv, scale, h),
+        lambda: A.qkv_attention_bwd_cuda(qkv, go, scale, h)), (
+        lambda: A.qkv_attention_plain(qkv, scale, h),
+        lambda: A.qkv_attention_bwd_plain(qkv, go, scale, h)), sdpa, card)
     per_image = s * 3 * d + s * d
     out["qkv_fwd"] = (fwd, _bound(2 * b * per_image, 4 * b * h * s * s * (d // h)))
     out["qkv_bwd"] = (bwd, _bound(2 * b * (per_image + s * 3 * d), 10 * b * h * s * s * (d // h)))
-    del qkv, go, q, k, v
+    del qkv, go, q, k, v, sdpa
 
     # prefix-KV at the DualPrompt e-prompt blocks
     b, s, p, d, h = P_TIMED
@@ -1414,20 +1509,15 @@ def phase_kernel_timing(dev, card):
     q = _heads(qkv[..., :d], h)
     k = _heads(torch.cat([pk, qkv[..., d:2 * d]], dim=1), h)
     v = _heads(torch.cat([pv, qkv[..., 2 * d:]], dim=1), h)
-    sdpa_fwd, sdpa_fb = _sdpa_runs(q, k, v, _heads(go, h), scale)
-    tag = f"B {b} S {s} P {p} D {d} H {h} bf16"
-    fwd = _time_pair(f"pqkv_fwd at {tag}", {
-        "plain": lambda: PA.prefix_attention_plain(qkv, pk, pv, scale, h),
-        "library": sdpa_fwd,
-        "kernel": lambda: PA.prefix_attention_cuda(qkv, pk, pv, scale, h)}, card)
-    bwd = _time_pair(f"pqkv_bwd at {tag} (sdpa: forward + backward)", {
-        "plain": lambda: PA.prefix_attention_bwd_plain(qkv, pk, pv, go, scale, h),
-        "library": sdpa_fb,
-        "kernel": lambda: PA.prefix_attention_bwd_cuda(qkv, pk, pv, go, scale, h)}, card)
-    bwd["library"] -= fwd["library"]
+    sdpa = _sdpa_runs(q, k, v, _heads(go, h), scale, _flash_and_cudnn())
+    fwd, bwd = _time_family("pqkv", f"B {b} S {s} P {p} D {d} H {h} bf16", (
+        lambda: PA.prefix_attention_cuda(qkv, pk, pv, scale, h),
+        lambda: PA.prefix_attention_bwd_cuda(qkv, pk, pv, go, scale, h)), (
+        lambda: PA.prefix_attention_plain(qkv, pk, pv, scale, h),
+        lambda: PA.prefix_attention_bwd_plain(qkv, pk, pv, go, scale, h)), sdpa, card)
     bound_fwd, bound_bwd = _pqkv_bounds(b, s, p, d, h)
     out["pqkv_fwd"], out["pqkv_bwd"] = (fwd, bound_fwd), (bwd, bound_bwd)
-    del qkv, pk, pv, go, q, k, v
+    del qkv, pk, pv, go, q, k, v, sdpa
 
     # masked at the CLIP text tower of a MoE-Adapter4CL step (100 prompts)
     b, s, d, h = M_TIMED
@@ -1435,27 +1525,25 @@ def phase_kernel_timing(dev, card):
     qkv, mask, go = _masked_inputs(M_TIMED, torch.bfloat16, dev, seed=9, kind="causal")
     q, k, v = (_heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3))
     go_h = _heads(go, h)
-    sdpa_fwd, sdpa_fb = _sdpa_runs(q, k, v, go_h, scale, attn_mask=mask.to(torch.bfloat16))
-    causal_fwd, causal_fb = _sdpa_runs(q, k, v, go_h, scale, is_causal=True)
-    tag = f"B {b} S {s} D {d} H {h} bf16 causal"
-    fwd = _time_pair(f"mqkv_fwd at {tag} (sdpa: float attn_mask; is_causal)", {
-        "plain": lambda: MA.masked_attention_plain(qkv, mask, scale, h),
-        "library": sdpa_fwd, "is_causal": causal_fwd,
-        "kernel": lambda: MA.masked_attention_cuda(qkv, mask, scale, h)}, card)
-    bwd = _time_pair(f"mqkv_bwd at {tag} (sdpa: forward + backward)", {
-        "plain": lambda: MA.masked_attention_bwd_plain(qkv, mask, go, scale, h),
-        "library": sdpa_fb, "is_causal": causal_fb,
-        "kernel": lambda: MA.masked_attention_bwd_cuda(qkv, mask, go, scale, h)}, card)
-    for key in ("library", "is_causal"):
-        bwd[key] -= fwd[key]
-    print(f"[timing] mqkv_bwd SDPA backward alone (forward + backward minus forward): float mask "
-          f"{bwd['library']:.4f} ms, is_causal {bwd['is_causal']:.4f} ms [{card}]")
+    sdpa = _sdpa_runs(q, k, v, go_h, scale, _flash_and_cudnn(), is_causal=True)
+    sdpa.update(_sdpa_runs(q, k, v, go_h, scale, {"sdpa_float_mask": None},
+                           attn_mask=mask.to(torch.bfloat16)))
+    fwd, bwd = _time_family("mqkv", f"B {b} S {s} D {d} H {h} bf16 causal (SDPA flash and "
+                            "cuDNN: is_causal)", (
+        lambda: MA.masked_attention_cuda(qkv, mask, scale, h),
+        lambda: MA.masked_attention_bwd_cuda(qkv, mask, go, scale, h)), (
+        lambda: MA.masked_attention_plain(qkv, mask, scale, h),
+        lambda: MA.masked_attention_bwd_plain(qkv, mask, go, scale, h)), sdpa, card)
     bound_fwd, bound_bwd = _mqkv_bounds(b, s, d, h)
     out["mqkv_fwd"], out["mqkv_bwd"] = (fwd, bound_fwd), (bwd, bound_bwd)
-    for name, (_, (bound_ms, by)) in out.items():
-        print(f"[bound] {name}: {bound_ms * 1e3:.1f} us, bound by {by}")
+    for name, (best, (bound_ms, by)) in out.items():
+        ratios = ", ".join(f"{best['kernel'] / best[n]:.1f}x {n}" for n in best
+                           if n.startswith("sdpa") and best[n] > 0)
+        print(f"[bound] {name}: {bound_ms * 1e3:.1f} us, bound by {by}; kernel "
+              f"{best['kernel'] / bound_ms:.1f}x the bound, {best['plain'] / best['kernel']:.2f}x "
+              f"faster than plain, {ratios}")
     for other in (3, 4):  # the g-prompt and CODA prefix lengths
-        (f_ms, f_by), (b_ms, b_by) = _pqkv_bounds(b, s, other, d, h)
+        (f_ms, f_by), (b_ms, b_by) = _pqkv_bounds(*P_TIMED[:2], other, *P_TIMED[3:])
         print(f"[bound] pqkv at P {other}: forward {f_ms * 1e3:.1f} us ({f_by}), "
               f"backward {b_ms * 1e3:.1f} us ({b_by})")
     return out
@@ -1467,27 +1555,6 @@ def _generic_bound(b, h, sq, skv, hd):
     return _bound(2 * b * h * hd * (2 * sq + 2 * skv), 4 * b * h * sq * skv * hd)
 
 
-def _sdpa_backends(q, k, v, scale):
-    """{name: SDPA on that backend} for the backends that take these inputs
-    (flash, cuDNN); the others are reported and left out."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    runs = {}
-    for name, backend in (("sdpa_flash", SDPBackend.FLASH_ATTENTION),
-                          ("sdpa_cudnn", SDPBackend.CUDNN_ATTENTION)):
-        def run(backend=backend):
-            with sdpa_kernel(backend):
-                return F.scaled_dot_product_attention(q, k, v, scale=scale)
-        try:
-            run()
-            torch.cuda.synchronize()
-            runs[name] = run
-        except RuntimeError as e:
-            print(f"[timing] {name} does not take B {q.shape[0]} H {q.shape[1]} Sq {q.shape[2]} "
-                  f"Skv {k.shape[2]} hd {q.shape[3]}: {str(e).splitlines()[0][:120]}")
-    return runs
-
-
 def _time_generic(label, shape, kernel, plain, card, library=True):
     """The kernel beside its plain version and (``library``) SDPA on the
     flash and cuDNN backends, bf16, contiguous inputs; returns (best times,
@@ -1496,20 +1563,13 @@ def _time_generic(label, shape, kernel, plain, card, library=True):
     q, k, v = _generic_inputs(shape, torch.bfloat16, dev=torch.device("cuda", 0), seed=9,
                               strided=False)
     scale = hd ** -0.5
-    sdpa = _sdpa_backends(q, k, v, scale) if library else {}
-    runs = {"plain": lambda: plain(q, k, v, scale)}
-    first = next(iter(sdpa), None)
-    if first:
-        runs["library"] = sdpa[first]
-    runs.update({n: fn for n, fn in sdpa.items() if n != first})
-    runs["kernel"] = lambda: kernel(q, k, v, scale)
-    best = _time_pair(f"{label} at B {b} H {h} Sq {sq} Skv {skv} hd {hd} bf16 (sdpa: "
-                      f"{first or 'none'})", runs, card)
-    lib_ms = {n: best["library" if n == first else n] for n in sdpa}
-    fastest = min(lib_ms, key=lib_ms.get) if lib_ms else None
-    best["library"], best["library_name"] = lib_ms.get(fastest), fastest
+    sdpa = _sdpa_runs(q, k, v, None, scale, _flash_and_cudnn()) if library else {}
+    best = _time_pair(f"{label} at B {b} H {h} Sq {sq} Skv {skv} hd {hd} bf16", {
+        "plain": lambda: plain(q, k, v, scale), **{n: f for n, (f, _) in sdpa.items()},
+        "kernel": lambda: kernel(q, k, v, scale)}, card)
+    _set_library(best, list(sdpa))
     bound = _generic_bound(*shape)
-    ratios = ", ".join(f"{best['kernel'] / ms:.1f}x {n}" for n, ms in lib_ms.items())
+    ratios = ", ".join(f"{best['kernel'] / best[n]:.1f}x {n}" for n in sdpa)
     print(f"[bound] {label}: {bound[0] * 1e3:.1f} us ({bound[1]}); kernel "
           f"{best['kernel'] / bound[0]:.1f}x the bound, {ratios or 'no SDPA call'}")
     return best, bound
@@ -1829,7 +1889,7 @@ def main() -> int:
     t_generic += time.perf_counter() - t_gen
     print(f"[env] the generic attention phases (checks, capture, path, tools, timing) in "
           f"{t_generic:.1f} s")
-    phase_step_timing(dev, card, "L2P")
+    phase_step_timing(dev, card, "L2P", profile=True)
     phase_step_timing(dev, card, "DualPrompt", profile=True)
     phase_step_timing(dev, card, "MoE_Adapter4CL", profile=True)
     phase_icarl_step_timing(dev, card)
@@ -1859,11 +1919,18 @@ def main() -> int:
             b, h, w, c, o = C_TIMED
             entry["library"] = "cuDNN"
             entry["shape"] = f"B {b} {h}x{w} C {c} -> O {o} bf16"
-        elif kname.startswith("attn"):
+        else:
+            entry["library"] = best["library_name"] and f"SDPA ({best['library_name']})"
+        if kname.startswith("attn"):
             b, h, sq, skv, hd = (G_TIMED[0][1:] if kname == "attn_fwd" else
                                  G_FLASH if kname == "attn_fwd_flash" else G_TOOL)
-            entry["library"] = best["library_name"] and f"SDPA ({best['library_name']})"
             entry["shape"] = f"B {b} H {h} Sq {sq} Skv {skv} hd {hd} bf16"
+        elif kname.startswith("qkv"):
+            entry["shape"] = "B {} S {} D {} H {} bf16".format(*TIMED)
+        elif kname.startswith("pqkv"):
+            entry["shape"] = "B {} S {} P {} D {} H {} bf16".format(*P_TIMED)
+        elif kname.startswith("mqkv"):
+            entry["shape"] = "B {} S {} D {} H {} bf16 causal".format(*M_TIMED)
         kernels.append(entry)
     for k in kernels:
         _require(k["launches"] > 0, f"{k['name']} was not launched on the main path")

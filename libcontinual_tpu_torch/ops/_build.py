@@ -39,14 +39,11 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 #: argument types of every function each library exports; all return an int
 SIGNATURES = {
     "attention": {
-        "lct_qkv_max_seq": [],
         "lct_qkv_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
         "lct_qkv_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-        "lct_pqkv_max_keys": [],
         "lct_pqkv_fwd": [_P, _P, _P, _LL, _LL, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         "lct_pqkv_bwd": [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _P],
-        "lct_mqkv_max_seq": [],
         "lct_mqkv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "lct_mqkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "lct_attn_max_head_dim": [],

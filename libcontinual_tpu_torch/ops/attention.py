@@ -38,7 +38,6 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64)
 
 
 def reset_launches() -> None:
@@ -103,7 +102,7 @@ def _lib() -> ctypes.CDLL:
 
 def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:
     """(B, S, D, hd) of a packed qkv tensor that the kernels take; raises on
-    the device, dtype, layout and head dim they do not take."""
+    the device, dtype, layout, head dim and grid they do not take."""
     if qkv.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {qkv.device}")
     if qkv.dtype not in _DTYPES:
@@ -114,17 +113,12 @@ def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, i
         raise ValueError(f"{name}: qkv must be contiguous")
     b, s, d3 = qkv.shape
     d = d3 // 3
-    if d % heads != 0 or d // heads not in _HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d}/{heads} not in {_HEAD_DIMS}")
+    max_hd = _lib().lct_attn_max_head_dim()  # any sequence length, hd up to this
+    if heads < 1 or d % heads != 0 or not 0 < d // heads <= max_hd:
+        raise ValueError(f"{name}: head dim {d}/{heads} outside 1..{max_hd}")
+    if min(b, s) < 1 or max(b, heads) > 65535:
+        raise ValueError(f"{name}: B {b}, S {s}, H {heads} outside the kernels' grid")
     return b, s, d, d // heads
-
-
-def _check(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:
-    b, s, d, hd = _check_packed(qkv, heads, name)
-    max_s = _lib().lct_qkv_max_seq()
-    if not 0 < s <= max_s:
-        raise ValueError(f"{name}: sequence length {s} outside 1..{max_s}")
-    return b, s, d, hd
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -133,7 +127,7 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def qkv_attention_cuda(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
-    b, s, d, hd = _check(qkv, heads, "qkv_attention_cuda")
+    b, s, d, hd = _check_packed(qkv, heads, "qkv_attention_cuda")
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_qkv_fwd(
@@ -148,7 +142,7 @@ def qkv_attention_cuda(qkv: torch.Tensor, scale: float, heads: int) -> torch.Ten
 def qkv_attention_bwd_cuda(
     qkv: torch.Tensor, g: torch.Tensor, scale: float, heads: int
 ) -> torch.Tensor:
-    b, s, d, hd = _check(qkv, heads, "qkv_attention_bwd_cuda")
+    b, s, d, hd = _check_packed(qkv, heads, "qkv_attention_bwd_cuda")
     g = g.contiguous()
     if g.shape != (b, s, d) or g.dtype != qkv.dtype or g.device != qkv.device:
         raise ValueError(

@@ -20,20 +20,26 @@
 //               (_kernel_v2, _kernel_fast, _kernel_mmonly, _kernel_qblock) and
 //               tools/exp_flash_kernel.py (fwd_kernel)
 //
-// The header states the rounding points, what bounds the kernels on an H100
-// (the bytes: about 52 us forward at B 128, S 222; 9.4 us forward and 16.5 us
-// backward for the masked kernels at B 100, S 77, D 512 in bf16; the f32 FMA
-// loop of this first version in practice) and what the design does about it.
+// The packed, prefix and masked kernels take any S and P (keys and values
+// stream through shared memory in 64-row tiles, nothing grows with S) and
+// hd 1-128, like the TPU bodies, which hold a head's (S, S) tile in VMEM.
+// Their bf16 forward runs its products on the tensor cores (mma.sync
+// m16n8k16, two passes over the key tiles so that the normalised P is
+// rounded before P . v, as the TPU bodies round it); the backward and the
+// f32 forward are f32 FMA on the CUDA cores. attention_kernels.cuh states
+// the design, the rounding points and what bounds the kernels on an H100:
+// the bytes (about 52 us forward at B 128, S 222; 9.4 us forward and 16.5 us
+// backward for the masked kernels at B 100, S 77, D 512 in bf16).
 //
 // dtype: 0 = float32, 1 = bfloat16. Each function returns a cudaError_t (0 on
-// success). stats: float32 scratch of 3 * B * H * S elements, written then read.
+// success; cudaErrorInvalidValue for a shape or dtype the kernels do not
+// take: hd above 128, B or H above 65535). stats: float32 scratch of
+// 3 * B * H * S elements, written then read.
 
 #include "attention_kernels.cuh"
 #include "generic_attention.cuh"
 
 // ---------------------------------------------------------------- packed qkv
-
-extern "C" int lct_qkv_max_seq() { return lct::kMaxKeys; }
 
 extern "C" int lct_qkv_fwd(const void* qkv, void* out, int B, int S, int H, int hd, int dtype,
                            float scale, void* stream) {
@@ -52,8 +58,6 @@ extern "C" int lct_qkv_bwd(const void* qkv, const void* g, void* dqkv, void* sta
 
 // pk, pv: (B, P, D) with row stride D and batch strides pk_bstride,
 // pv_bstride in elements (0 for a prefix shared by every image).
-extern "C" int lct_pqkv_max_keys() { return lct::kMaxKeys; }
-
 extern "C" int lct_pqkv_fwd(const void* qkv, const void* pk, const void* pv, long long pk_bstride,
                             long long pv_bstride, void* out, int B, int S, int P, int H, int hd,
                             int dtype, float scale, void* stream) {
@@ -75,8 +79,6 @@ extern "C" int lct_pqkv_bwd(const void* qkv, const void* pk, const void* pv, lon
 // ------------------------------------------------------------------ masked
 
 // mask: (S, S) float32, contiguous, added to every image's and head's scores.
-extern "C" int lct_mqkv_max_seq() { return lct::kMaxKeys; }
-
 extern "C" int lct_mqkv_fwd(const void* qkv, const float* mask, void* out, int B, int S, int H,
                             int hd, int dtype, float scale, void* stream) {
   return (int)lct::attn_fwd<lct::kMasked>(qkv, nullptr, nullptr, 0, 0, mask, out, B, S, 0, H, hd,
@@ -93,13 +95,17 @@ extern "C" int lct_mqkv_bwd(const void* qkv, const float* mask, const void* g, v
 
 // ------------------------------------------------------------------ generic
 
+// The largest head dim of every attention kernel here (any sequence length).
+extern "C" int lct_attn_max_head_dim() {
+  static_assert(lct::kMaxHeadDim == lct::gattn::kMaxHeadDim, "one head-dim limit");
+  return lct::kMaxHeadDim;
+}
+
 // q, k, v: element strides on B, H and S (sb, sh, ss) each, the last dim
 // contiguous; out: contiguous (B, H, Sq, hd). mode: 0 _attention_kernel (P in
 // f32), 1 _kernel_v2, 2 _kernel_v2 without the max, 3 _kernel_fast, 4
 // _kernel_fast with bf16 exp, 5 _kernel_mmonly (lct::gattn::Mode). mult: the
 // scores' multiplier (scale; scale * log2(e) for modes 3 and 4; unused by 5).
-extern "C" int lct_attn_max_head_dim() { return lct::gattn::kMaxHeadDim; }
-
 extern "C" int lct_attn_fwd(const void* q, const void* k, const void* v, void* out, int B, int H,
                             int Sq, int Skv, int hd, long long qsb, long long qsh, long long qss,
                             long long ksb, long long ksh, long long kss, long long vsb,

@@ -4,27 +4,31 @@
 //   * kPrefix  P prompt key/value rows:  _pqkv_kernel / _pqkv_bwd_kernel
 //   * kMasked  a shared (S, S) f32 additive mask on the scores:
 //                                        _mqkv_kernel / _mqkv_bwd_kernel
-// (all six in libcontinual_tpu/ops/attention.py).
+// (all six in libcontinual_tpu/ops/attention.py). The TPU bodies hold one
+// head's whole (S, S) score tile in VMEM; here nothing grows with S: keys
+// and values stream through shared memory in 64-row tiles, so any S and any
+// P + S run, at hd 1 ... 128 (padded with zero columns in shared memory only
+// to HDP = 16, 32, 64 or 128).
 //
 // Keys and values. One head sees N = P + S keys. Key j < P is row j of the
 // prefix tensors pk / pv, (B, P, D) with row stride D and a batch stride of
 // its own (0 for a prompt broadcast over the batch); key j >= P is sequence
 // row j - P of the packed qkv tensor, [q | k | v] with row stride 3D, head h
-// at columns h*hd ... h*hd+hd. Both are read straight into one shared-memory
-// tile in the same loop, so the concatenated (B, P+S, H, hd) K and V, the
-// head-split copy of qkv and the (S, P+S) scores never exist in device memory.
-// One softmax runs over all N keys: one max and one denominator over the
-// prefix and the sequence scores together.
+// at columns h*hd ... h*hd+hd. Both are read straight into the same tile (the
+// tile that straddles P mixes them), so the concatenated (B, P+S, H, hd) K
+// and V, the head-split copy of qkv and the (S, P+S) scores never exist in
+// device memory. One softmax runs over all N keys.
 //
 // Masked mode (the CLIP text tower's causal mask). The mask is a (S, S) f32
-// tensor with row stride S, shared by every image and head, read straight
-// from global memory (L2-resident: 24 KB at S 77) where a score is formed and
-// added to it. It gets no gradient. A -1e30 entry gives exactly 0 after
-// expf(s - max); padded keys (j >= S) read no mask and stay zero.
+// tensor with row stride S, shared by every image and head, read from global
+// memory (L2-resident: 24 KB at S 77) where a score is formed and added to
+// it. It gets no gradient. A -1e30 entry gives exactly 0 after
+// expf(s - max); keys past N are -inf and read no mask.
 //
 // Rounding points are those of the TPU kernel bodies:
-//   forward:  s = (q . k^T in f32) * scale [+ mask]; P = softmax(s) in f32, rounded to
-//             the input type before P . v; f32 accumulation; output rounded once.
+//   forward:  s = (q . k^T in f32) * scale [+ mask]; P = exp(s - max) / sum
+//             in f32, rounded to the input type before P . v; f32
+//             accumulation; the output rounded once.
 //   backward: P recomputed in f32; dP = g . v^T; c = rowsum(dP * P);
 //             dv = round(P)^T . g; dS = round(P * (dP - c)); dq = dS . k * scale;
 //             dk = dS^T . q * scale; all products accumulate in f32. For a
@@ -32,28 +36,51 @@
 // Products of bf16 values are exact in f32, so the only difference from the
 // plain PyTorch versions is the order of the f32 sums.
 //
-// What bounds these kernels on an H100: at ViT-B shapes (S 197-222, P <= 10,
-// hd 64) attention does a few hundred FLOP per byte of qkv, and the least
-// time is set by the bytes (about 50 us forward at B 128). This first version
-// does its products on the CUDA cores in f32 FMA, fed from shared memory, so
-// it is bound by those FMAs and the shared-memory reads that feed them, far
-// from either roofline. A block keeps a whole head's N <= 256 keys and values
-// in shared memory, so every key row is read from device memory once per
-// query tile and the scores never leave the chip. Each thread owns a small
-// register tile of each product (2 x 4 outputs per k step), which cuts
-// shared-memory reads per FMA to 3/4. wgmma on bf16 tiles fed by TMA is the
-// next step for speed.
+// What bounds them on an H100: at ViT-B shapes (S 197-222, P <= 10, hd 64)
+// attention does a few hundred FLOP per byte of qkv, and the least time is
+// set by the bytes (about 52 us forward at B 128, S 222).
+//
+// Forward (attn_fwd_kernel), designed for Hopper's bf16 tensor cores. One
+// block of 4 warps per (64-query tile, head, image); each warp owns 16 query
+// rows. Q is staged once and held as mma A-fragments in registers. K and V
+// stream in 64-key bf16 tiles through shared memory, double-buffered with
+// 16-byte cp.async copies (zero-filled past N and past hd; rows padded by 16
+// bytes so that ldmatrix hits every bank once). Products are
+// mma.sync.m16n8k16 bf16 -> f32 fed by ldmatrix (.trans for V). Because the
+// TPU body rounds the *normalised* P before P . v, the block makes two passes
+// over the key tiles: pass 1 forms the scores and each row's max and sum
+// (the sum rescaled online as the max grows, rows reduced over the quad with
+// shuffles); pass 2 forms the scores again, turns the accumulator registers
+// straight into P's A-fragments, P = round(exp(s - m) / l), and accumulates
+// O += P . V on the tensor cores. The cost is q . k^T twice, which at these
+// shapes stays below the byte bound's time at the dense peak; what the
+// block spends most on is the softmax's per-score arithmetic (an expf in
+// each pass), so the quotient exp(s - m) / l is the product with the
+// correctly rounded 1 / l and one fma correction (no divide per score), and
+// registers are capped at 128 (hd <= 64) so that 4 blocks share an SM.
+// Shared memory: 5 tiles (Q, 2 K, 2 V) of 64 x (HDP + 8) bf16, 46 KB at
+// hd 64, whatever N.
+// The f32 instantiations (no train step runs them; the checks hold them to
+// 1e-5, so no TF32) keep the same streamed two-pass structure with f32 tiles
+// and do their products in f32 FMA on the CUDA cores, P . V through a
+// per-warp P tile in shared memory.
+//
+// Backward: a per-query-tile kernel (dq and the row statistics) and a
+// per-key-tile kernel (dk, dv, or dpk, dpv for prefix keys), both f32 FMA
+// from f32 shared-memory tiles. The dq kernel streams the key tiles in two
+// sweeps: the first computes each row's max m, sum l and a = sum exp(s - m) dP
+// online (l and a rescaled when m moves), and stores m, l and dsum = a / l;
+// the second rebuilds s and dP tile by tile, forms dS with the key-tile
+// kernel's formula and accumulates dq. The key-tile kernel streams the query
+// tiles. Both build P and dS from the stored statistics with the same
+// arithmetic, so they see bit-identical P and dS; both form a score as
+// __fadd_rn(__fmul_rn(q . k, scale), mask): the explicit roundings forbid the
+// compiler to fuse the scale and the mask into an fma in one kernel and not
+// in the other. Their tensor-core redesign is still to come.
 //
 // The mode is a template argument, so each instantiation compiles without the
-// other modes' branches.
-//
-// Determinism: every sum runs in a fixed order (no atomics). The backward
-// splits into a per-query-tile kernel (dq, plus the row statistics) and a
-// per-key-tile kernel (dk, dv, or dpk, dpv for prefix keys) that replays the
-// same score and dP arithmetic, so both see bit-identical P and dS. Both form
-// a score as __fadd_rn(__fmul_rn(q . k, scale), mask): the explicit roundings
-// forbid the compiler to fuse the scale and the mask into an fma in one
-// kernel and not in the other.
+// other modes' branches. Determinism: every sum runs in a fixed order (no
+// atomics).
 
 #pragma once
 
@@ -61,12 +88,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace lct {
 
-constexpr int kThreads = 256;  // 16 x 16 thread grid over every product tile
-constexpr int kQT = 32;        // query rows per tile
-constexpr int kKT = 64;        // key columns per tile
-constexpr int kMaxKeys = 256;  // K and V of one head (P + S rows) in shared memory
+constexpr int kMaxHeadDim = 128;
+constexpr int kKT = 64;           // keys per streamed tile (forward and backward)
+constexpr int kFwdThreads = 128;  // forward: 4 warps of 16 query rows
+constexpr int kFwdQT = 64;        // forward: query rows per block
+constexpr int kThreads = 256;     // backward: a 16 x 16 thread grid over every product tile
+constexpr int kQT = 32;           // backward: query rows per tile
 
 enum Mode : int { kPlain = 0, kPrefix = 1, kMasked = 2 };
 
@@ -86,32 +117,349 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
-__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// hd padded to the instantiation's width.
+inline int padded_head_dim(int hd) { return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
 
-// Copy `rows` rows of one head (hd columns) from global memory into a float
-// tile with leading dimension ld; rows at or past S are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int64_t row_stride, int row0, int rows,
-                                          int S, int hd) {
-  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
-    const int r = e / hd, c = e - (e / hd) * hd;
+// ------------------------------------------------------ forward: primitives
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest `n` has landed
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c += a . b on one 16 x 8 x 16 bf16 tile, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Shared-memory row of a forward tile: HDP elements and 16 bytes of padding,
+// so the 8 rows an ldmatrix (or a quad's FMA loads) touch fall in 8
+// different 16-byte bank groups.
+template <typename T, int HDP>
+struct FwdTile {
+  static constexpr int kChunk = 16 / sizeof(T);  // elements per 16-byte copy
+  static constexpr int kLd = HDP + kChunk;
+  static constexpr int kElems = kKT * kLd;       // one 64-row tile
+};
+
+// Stage rows row0 ... row0+63 of one head into `dst`: row j < P from `pre`
+// (row stride D), row P <= j < N from `seq` (row stride 3D, row j - P);
+// rows at or past N and columns at or past hd are zero. `vec`: hd and every
+// row start are whole 16-byte chunks, so cp.async copies them (asynchronous,
+// committed by the caller); otherwise plain element copies.
+template <typename T, int HDP, bool PREFIX>
+__device__ __forceinline__ void stage_rows(T* dst, const T* pre, const T* seq, int row0, int P,
+                                           int N, int D, int hd, bool vec) {
+  using Tile = FwdTile<T, HDP>;
+  if (vec) {
+    constexpr int kPerRow = HDP / Tile::kChunk;
+    for (int e = threadIdx.x; e < kKT * kPerRow; e += kFwdThreads) {
+      const int r = e / kPerRow, c = (e % kPerRow) * Tile::kChunk, j = row0 + r;
+      const T* src = seq;  // a valid address; nothing is read from it
+      int bytes = 0;
+      if (j < N && c < hd) {
+        src = (PREFIX && j < P) ? pre + (int64_t)j * D + c : seq + (int64_t)(j - P) * 3 * D + c;
+        bytes = 16;
+      }
+      cp_async16(dst + r * Tile::kLd + c, src, bytes);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kKT * HDP; e += kFwdThreads) {
+      const int r = e / HDP, c = e % HDP, j = row0 + r;
+      T x = from_f<T>(0.f);
+      if (j < N && c < hd)
+        x = (PREFIX && j < P) ? pre[(int64_t)j * D + c] : seq[(int64_t)(j - P) * 3 * D + c];
+      dst[r * Tile::kLd + c] = x;
+    }
+  }
+}
+
+// The warp's 16 x 64 raw scores q . k^T in the mma accumulator layout: s[j]
+// holds keys j*8 + 2t, +1 of rows g (s[j][0..1]) and g + 8 (s[j][2..3]),
+// where g = lane / 4 and t = lane % 4. bf16: tensor cores from the Q
+// fragments `qf` and ldmatrix on the K tile; f32: FMA from the Q and K tiles.
+template <typename T, int HDP>
+__device__ __forceinline__ void fwd_scores(float (&s)[kKT / 8][4], const uint32_t (&qf)[HDP / 16][4],
+                                           const T* Qw, const T* Kb) {
+  constexpr int LD = FwdTile<T, HDP>::kLd;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  if constexpr (std::is_same<T, float>::value) {
+    const float* qa = Qw + g * LD;
+    const float* qb = qa + 8 * LD;
+#pragma unroll 4
+    for (int k = 0; k < HDP; ++k) {
+      const float a0 = qa[k], a1 = qb[k];
+#pragma unroll
+      for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float kv = Kb[(j * 8 + 2 * t + c) * LD + k];
+          s[j][c] = fmaf(a0, kv, s[j][c]);
+          s[j][2 + c] = fmaf(a1, kv, s[j][2 + c]);
+        }
+    }
+  } else {
+    // x4: keys jp*16 + 0..7 and + 8..15, each at dims kk*16 + 0..7 and + 8..15
+    const int key = (lane % 8) + (lane / 16) * 8, col = ((lane / 8) % 2) * 8;
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < kKT / 16; ++jp) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Kb + (jp * 16 + key) * LD + kk * 16 + col);
+        mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+      }
+  }
+}
+
+// o += round(P) . V for the warp's 16 rows over one 64-key tile; P (already
+// normalised, in f32) in the score layout of fwd_scores, o in the same
+// layout over HDP columns (o[d] holds columns d*8 + 2t, +1). bf16: P's
+// accumulator registers are rounded to bf16 as they are packed into
+// A-fragments; f32: P (its own rounding) goes through the warp's tile Pw in
+// shared memory.
+template <typename T, int HDP>
+__device__ __forceinline__ void fwd_pv(float (&o)[HDP / 8][4], const float (&p)[kKT / 8][4],
+                                       const T* Vb, float* Pw) {
+  constexpr int LD = FwdTile<T, HDP>::kLd;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int LDP = kKT + 4;
+#pragma unroll
+    for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) Pw[(g + (e / 2) * 8) * LDP + j * 8 + 2 * t + (e % 2)] = p[j][e];
+    __syncwarp();
+#pragma unroll 4
+    for (int k = 0; k < kKT; ++k) {
+      const float p0 = Pw[g * LDP + k], p1 = Pw[(g + 8) * LDP + k];
+#pragma unroll
+      for (int d = 0; d < HDP / 8; ++d)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = Vb[k * LD + d * 8 + 2 * t + c];
+          o[d][c] = fmaf(p0, v, o[d][c]);
+          o[d][2 + c] = fmaf(p1, v, o[d][2 + c]);
+        }
+    }
+    __syncwarp();  // Pw read in full before the next tile writes it
+  } else {
+    // x4.trans: keys kk*16 + 0..7 and + 8..15, each at dims dp*16 + 0..7 and + 8..15
+    const int key = (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
+#pragma unroll
+    for (int kk = 0; kk < kKT / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                             pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                             pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HDP / 16; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Vb + (kk * 16 + key) * LD + dp * 16 + col);
+        mma_bf16(o[2 * dp], a, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], a, vb[2], vb[3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- forward
+
+// One block per (64-query tile, head, image), 4 warps of 16 query rows.
+// Stage i < tiles brings K of key tile i (pass 1); stage tiles + i brings K
+// and V of key tile i (pass 2). Stage i + 1 is in flight while stage i is
+// computed.
+template <typename T, int HDP, int MODE>
+__global__ void __launch_bounds__(kFwdThreads, HDP <= 64 ? 4 : 2)
+attn_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ pk, const T* __restrict__ pv,
+                int64_t pk_bstride, int64_t pv_bstride, const float* __restrict__ mask,
+                T* __restrict__ out, int S, int P, int H, int hd, float scale, bool vec) {
+  constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
+  constexpr bool MMA = !std::is_same<T, float>::value;
+  using Tile = FwdTile<T, HDP>;
+  constexpr int LD = Tile::kLd, TILE = Tile::kElems;
+  P = PREFIX ? P : 0;  // a compile-time 0 without a prefix
+  const int D = H * hd, N = P + S, tiles = (N + kKT - 1) / kKT;
+  extern __shared__ __align__(16) unsigned char fwd_tiles[];
+  T* Qs = reinterpret_cast<T*>(fwd_tiles);  // kFwdQT x LD
+  T* Ks = Qs + TILE;                       // 2 buffers
+  T* Vs = Ks + 2 * TILE;                   // 2 buffers
+  float* Pw = reinterpret_cast<float*>(Vs + 2 * TILE);  // f32 only: 4 x 16 x (kKT + 4)
+  const int q0 = blockIdx.x * kFwdQT, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const T* base = qkv + (int64_t)b * S * 3 * D + (int64_t)h * hd;
+  const T* pkb = PREFIX ? pk + b * pk_bstride + (int64_t)h * hd : nullptr;
+  const T* pvb = PREFIX ? pv + b * pv_bstride + (int64_t)h * hd : nullptr;
+  const int stages = 2 * tiles;
+
+  auto prefetch = [&](int i) {
+    const int row0 = (i < tiles ? i : i - tiles) * kKT, buf = i % 2;
+    stage_rows<T, HDP, PREFIX>(Ks + buf * TILE, pkb, base + D, row0, P, N, D, hd, vec);
+    if (i >= tiles)
+      stage_rows<T, HDP, PREFIX>(Vs + buf * TILE, pvb, base + 2 * D, row0, P, N, D, hd, vec);
+  };
+  stage_rows<T, HDP, false>(Qs, nullptr, base, q0, 0, S, D, hd, vec);
+  prefetch(0);
+  cp_async_commit();
+
+  uint32_t qf[HDP / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];  // rows g and g + 8
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int d = 0; d < HDP / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  const T* Qw = Qs + warp * 16 * LD;
+  const int row_g = q0 + warp * 16 + g;  // this thread's rows: row_g and row_g + 8
+
+  for (int i = 0; i < stages; ++i) {
+    if (i + 1 < stages) prefetch(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage i (and at i == 0 the Q tile) visible to every warp
+    if (MMA && i == 0) {
+      // x4: rows 0..7 and 8..15 of the warp, each at dims kk*16 + 0..7 and + 8..15
+      const int row = (lane % 8) + ((lane / 8) % 2) * 8, col = (lane / 16) * 8;
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) ldmatrix_x4(qf[kk], Qw + row * LD + kk * 16 + col);
+    }
+    const bool pass1 = i < tiles;
+    const int k0 = (pass1 ? i : i - tiles) * kKT, buf = i % 2;
+    float s[kKT / 8][4];
+    fwd_scores<T, HDP>(s, qf, Qw, Ks + buf * TILE);
+    const bool edge = k0 + kKT > N;  // the last tile holds keys past N
+#pragma unroll
+    for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row_g + (e / 2) * 8, col = k0 + j * 8 + 2 * t + (e % 2);
+        float v = __fmul_rn(s[j][e], scale);
+        if (MASK && row < S && col < N) v = __fadd_rn(v, mask[(int64_t)row * S + col]);
+        s[j][e] = edge && col >= N ? -INFINITY : v;
+      }
+    if (pass1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kKT / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);  // finite: key 0 is in tile 0
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kKT / 8; ++j)
+          sum += expf(s[j][2 * r] - m_new) + expf(s[j][2 * r + 1] - m_new);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[r] = fmaf(l[r], expf(m[r] - m_new), sum);  // expf(-inf) = 0 on the first tile
+        m[r] = m_new;
+      }
+    } else {
+      // P = exp(s - m) / l: the quotient as the product with the correctly
+      // rounded 1 / l, corrected by one fma of the remainder (Markstein), so
+      // within an ulp of the division and almost always equal to it, with no
+      // divide per score; fwd_pv rounds it to T
+      if (i == tiles)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) inv[r] = __frcp_rn(l[r]);
+#pragma unroll
+      for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = expf(s[j][e] - m[e / 2]);
+          const float q = __fmul_rn(x, inv[e / 2]);
+          s[j][e] = fmaf(fmaf(-q, l[e / 2], x), inv[e / 2], q);
+        }
+      fwd_pv<T, HDP>(o, s, Vs + buf * TILE, Pw + warp * 16 * (kKT + 4));
+    }
+    __syncthreads();  // buffer i % 2 read in full before stage i + 2 overwrites it
+  }
+
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = row_g + (e / 2) * 8;
+    if (row >= S) continue;
+    T* orow = out + ((int64_t)b * S + row) * D + (int64_t)h * hd;
+#pragma unroll
+    for (int d = 0; d < HDP / 8; ++d) {
+      const int col = d * 8 + 2 * t + (e % 2);
+      if (col < hd) orow[col] = from_f<T>(o[d][e]);
+    }
+  }
+}
+
+// --------------------------------------------------- backward: primitives
+
+// Copy `rows` rows of one head (HD columns, those at or past hd zero) from
+// global memory into a float tile with leading dimension ld; rows at or past
+// S are zero.
+template <int HD, typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int64_t row_stride,
+                                          int row0, int rows, int S, int hd) {
+  for (int e = threadIdx.x; e < rows * HD; e += blockDim.x) {
+    const int r = e / HD, c = e % HD;
     const int gr = row0 + r;
-    dst[r * ld + c] = gr < S ? to_f(src[(int64_t)gr * row_stride + c]) : 0.f;
+    dst[r * ld + c] = gr < S && c < hd ? to_f(src[(int64_t)gr * row_stride + c]) : 0.f;
   }
 }
 
 // Copy keys (or values) row0 ... row0+rows of one head: key j < P from the
 // prefix rows `pre` (row stride D), key P <= j < P + S from the sequence rows
-// `seq` (row stride 3D); keys at or past P + S are zero.
-template <bool PREFIX, typename T>
+// `seq` (row stride 3D); keys at or past P + S and columns at or past hd are
+// zero.
+template <bool PREFIX, int HD, typename T>
 __device__ __forceinline__ void load_keys(float* dst, int ld, const T* pre, const T* seq,
                                           int row0, int rows, int P, int S, int D, int hd) {
-  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
-    const int r = e / hd, c = e - (e / hd) * hd;
+  for (int e = threadIdx.x; e < rows * HD; e += blockDim.x) {
+    const int r = e / HD, c = e % HD;
     const int j = row0 + r;
     float x = 0.f;
-    if (PREFIX && j < P)
+    if (c >= hd)
+      x = 0.f;
+    else if (PREFIX && j < P)
       x = to_f(pre[(int64_t)j * D + c]);
     else if (j < P + S)
       x = to_f(seq[(int64_t)(j - P) * 3 * D + c]);
@@ -146,31 +494,28 @@ __device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
     for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
 }
 
-// out[i][j] = (X[i] . Y[j]) * scale for a kQT-row tile X against Np rows of Y
-// (both ld-strided, hd deep), in chunks of kKT columns. With MASK,
-// mask[i * mask_ld + j] is added for i < rows and j < cols.
+// out[i][j] = (X[i] . Y[j]) * scale for a kQT-row tile X against the kKT rows
+// of a key tile Y (both ld-strided, hd deep). With MASK, mask[i * mask_ld + j]
+// is added for i < rows and j < cols.
 template <bool MASK>
 __device__ __forceinline__ void scaled_products(const float* X, const float* Y, float* out,
-                                                int ld, int ldo, int Np, int hd, float scale,
+                                                int ld, int ldo, int hd, float scale,
                                                 const float* mask, int mask_ld, int rows,
                                                 int cols) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = ty * 2;
-  for (int c0 = 0; c0 < Np; c0 += kKT) {
-    const int j0 = c0 + tx * 4;
-    float acc[2][4];
-    zero(acc);
-    mac(acc, X + i0 * ld, ld, 1, Y + j0 * ld, 1, ld, hd);
+  const int i0 = ty * 2, j0 = tx * 4;
+  float acc[2][4];
+  zero(acc);
+  mac(acc, X + i0 * ld, ld, 1, Y + j0 * ld, 1, ld, hd);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v = __fmul_rn(acc[r][c], scale);
-        const int i = i0 + r, j = j0 + c;
-        if (MASK && i < rows && j < cols) v = __fadd_rn(v, mask[(int64_t)i * mask_ld + j]);
-        out[i * ldo + j] = v;
-      }
-  }
+    for (int c = 0; c < 4; ++c) {
+      float v = __fmul_rn(acc[r][c], scale);
+      const int i = i0 + r, j = j0 + c;
+      if (MASK && i < rows && j < cols) v = __fadd_rn(v, mask[(int64_t)i * mask_ld + j]);
+      out[i * ldo + j] = v;
+    }
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -185,151 +530,132 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Row max and row sum of exp(s - max) over the first N entries of one score
-// row, by one warp, in a fixed order.
-__device__ __forceinline__ void row_stats(const float* s, int N, float* m_out, float* l_out) {
-  const int lane = threadIdx.x % 32;
-  float m = -INFINITY;
-  for (int j = lane; j < N; j += 32) m = fmaxf(m, s[j]);
-  m = warp_max(m);
-  float l = 0.f;
-  for (int j = lane; j < N; j += 32) l += expf(s[j] - m);
-  *m_out = m;
-  *l_out = warp_sum(l);
-}
-
-// ---------------------------------------------------------------- forward
-
-// One block per (query tile, head, image).
-template <typename T, int HD, int MODE>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ pk, const T* __restrict__ pv,
-                int64_t pk_bstride, int64_t pv_bstride, const float* __restrict__ mask,
-                T* __restrict__ out, int S, int P, int H, float scale) {
-  constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
-  constexpr int LD = HD + 1;  // odd stride: neighbouring rows fall in other banks
-  constexpr int TN = HD / 16;
-  P = PREFIX ? P : 0;  // a compile-time 0 without a prefix
-  const int D = H * HD, N = P + S, Np = round_up(N, kKT), LDP = Np + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // kQT x LD
-  float* Ks = Qs + kQT * LD;   // Np x LD
-  float* Vs = Ks + Np * LD;    // Np x LD
-  float* Ps = Vs + Np * LD;    // kQT x LDP: scores, then P
-  const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
-  const T* base = qkv + (int64_t)b * S * 3 * D + h * HD;
-  const T* pkb = PREFIX ? pk + (int64_t)b * pk_bstride + h * HD : nullptr;
-  const T* pvb = PREFIX ? pv + (int64_t)b * pv_bstride + h * HD : nullptr;
-
-  load_tile(Qs, LD, base, 3 * D, q0, kQT, S, HD);
-  load_keys<PREFIX>(Ks, LD, pkb, base + D, 0, Np, P, S, D, HD);
-  load_keys<PREFIX>(Vs, LD, pvb, base + 2 * D, 0, Np, P, S, D, HD);
-  __syncthreads();
-  scaled_products<MASK>(Qs, Ks, Ps, LD, LDP, Np, HD, scale,
-                        MASK ? mask + (int64_t)q0 * S : nullptr, S, S - q0, S);
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < kQT; i += kThreads / 32) {
-    float* row = Ps + i * LDP;
-    float m, l;
-    row_stats(row, N, &m, &l);
-    for (int j = lane; j < Np; j += 32)
-      row[j] = j < N ? round_to<T>(expf(row[j] - m) / l) : 0.f;
-  }
-  __syncthreads();
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = ty * 2, d0 = tx * TN;
-  float acc[2][TN];
-  zero(acc);
-  mac(acc, Ps + i0 * LDP, LDP, 1, Vs + d0, LD, 1, N);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + i0 + r;
-    if (qi < S) {
-#pragma unroll
-      for (int c = 0; c < TN; ++c)
-        out[((int64_t)b * S + qi) * D + h * HD + d0 + c] = from_f<T>(acc[r][c]);
-    }
-  }
-}
-
 // --------------------------------------------------------------- backward
 
-// One block per (query tile, head, image): recompute P over full rows of N
-// keys, form dS, write dq, and store the row statistics (max, sum,
-// rowsum(dP * P)) that the key-tile kernel needs to rebuild the same P and dS.
+// One block per (query tile, head, image). Sweep 1 over the key tiles: each
+// row's max m, sum l and a = sum exp(s - m) dP, online; the row statistics
+// (m, l, dsum = a / l) go to `stats` for the key-tile kernel. Sweep 2: s and
+// dP again, dS as the key-tile kernel forms it, dq += dS . k.
 template <typename T, int HD, int MODE>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
                    const T* __restrict__ pv, int64_t pk_bstride, int64_t pv_bstride,
                    const float* __restrict__ mask, const T* __restrict__ g,
-                   T* __restrict__ dqkv, float* __restrict__ stats, int S, int P, int H,
+                   T* __restrict__ dqkv, float* __restrict__ stats, int S, int P, int H, int hd,
                    float scale) {
   constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
   constexpr int LD = HD + 1;
   constexpr int TN = HD / 16;
+  constexpr int LDK = kKT + 1;
+  constexpr int kRowsPerWarp = kQT / (kThreads / 32);
   P = PREFIX ? P : 0;  // a compile-time 0 without a prefix
-  const int D = H * HD, N = P + S, Np = round_up(N, kKT), LDP = Np + 1;
+  const int D = H * hd, N = P + S;
   extern __shared__ float smem[];
   float* Qs = smem;            // kQT x LD
   float* Gs = Qs + kQT * LD;   // kQT x LD
-  float* Ks = Gs + kQT * LD;   // Np x LD
-  float* Vs = Ks + Np * LD;    // Np x LD
-  float* Ss = Vs + Np * LD;    // kQT x LDP: scores
-  float* dS = Ss + kQT * LDP;  // kQT x LDP: dP, then dS
+  float* Ks = Gs + kQT * LD;   // kKT x LD
+  float* Vs = Ks + kKT * LD;   // kKT x LD
+  float* Ss = Vs + kKT * LD;   // kQT x LDK: scores
+  float* dS = Ss + kQT * LDK;  // kQT x LDK: dP, then dS
+  float* st = dS + kQT * LDK;  // 3 x kQT: max, sum, rowsum(dP * P)
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
-  const T* base = qkv + (int64_t)b * S * 3 * D + h * HD;
-  const T* pkb = PREFIX ? pk + (int64_t)b * pk_bstride + h * HD : nullptr;
-  const T* pvb = PREFIX ? pv + (int64_t)b * pv_bstride + h * HD : nullptr;
+  const T* base = qkv + (int64_t)b * S * 3 * D + (int64_t)h * hd;
+  const T* pkb = PREFIX ? pk + b * pk_bstride + (int64_t)h * hd : nullptr;
+  const T* pvb = PREFIX ? pv + b * pv_bstride + (int64_t)h * hd : nullptr;
+  const float* mrow = MASK ? mask + (int64_t)q0 * S : nullptr;
 
-  load_tile(Qs, LD, base, 3 * D, q0, kQT, S, HD);
-  load_tile(Gs, LD, g + (int64_t)b * S * D + h * HD, D, q0, kQT, S, HD);
-  load_keys<PREFIX>(Ks, LD, pkb, base + D, 0, Np, P, S, D, HD);
-  load_keys<PREFIX>(Vs, LD, pvb, base + 2 * D, 0, Np, P, S, D, HD);
-  __syncthreads();
-  scaled_products<MASK>(Qs, Ks, Ss, LD, LDP, Np, HD, scale,
-                        MASK ? mask + (int64_t)q0 * S : nullptr, S, S - q0, S);
-  scaled_products<false>(Gs, Vs, dS, LD, LDP, Np, HD, 1.f, nullptr, 0, 0, 0);
-  __syncthreads();
+  load_tile<HD>(Qs, LD, base, 3 * D, q0, kQT, S, hd);
+  load_tile<HD>(Gs, LD, g + (int64_t)b * S * D + (int64_t)h * hd, D, q0, kQT, S, hd);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t srow = ((int64_t)b * H + h) * S;  // stats are (3, B, H, S)
-  const int64_t splane = (int64_t)gridDim.z * H * S;
-  for (int i = warp; i < kQT; i += kThreads / 32) {
-    const float* s = Ss + i * LDP;
-    float* dp = dS + i * LDP;
-    float m, l;
-    row_stats(s, N, &m, &l);
-    float dsum = 0.f;
-    for (int j = lane; j < N; j += 32) dsum += dp[j] * (expf(s[j] - m) / l);
-    dsum = warp_sum(dsum);
-    for (int j = lane; j < Np; j += 32) {
-      const float p = expf(s[j] - m) / l;
-      dp[j] = j < N ? round_to<T>(p * (dp[j] - dsum)) : 0.f;
-    }
-    const int qi = q0 + i;
-    if (lane == 0 && qi < S) {
-      stats[srow + qi] = m;
-      stats[splane + srow + qi] = l;
-      stats[2 * splane + srow + qi] = dsum;
+  float m[kRowsPerWarp], l[kRowsPerWarp], a[kRowsPerWarp];  // rows warp + 8 r
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+    a[r] = 0.f;
+  }
+  for (int k0 = 0; k0 < N; k0 += kKT) {
+    __syncthreads();  // the previous tile's K, V, scores and dP fully read
+    load_keys<PREFIX, HD>(Ks, LD, pkb, base + D, k0, kKT, P, S, D, hd);
+    load_keys<PREFIX, HD>(Vs, LD, pvb, base + 2 * D, k0, kKT, P, S, D, hd);
+    __syncthreads();
+    scaled_products<MASK>(Qs, Ks, Ss, LD, LDK, HD, scale, MASK ? mrow + k0 : nullptr, S,
+                          S - q0, N - k0);
+    scaled_products<false>(Gs, Vs, dS, LD, LDK, HD, 1.f, nullptr, 0, 0, 0);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const float* s = Ss + (warp + 8 * r) * LDK;
+      const float* dp = dS + (warp + 8 * r) * LDK;
+      float tmax = -INFINITY;
+      for (int j = lane; j < kKT; j += 32)
+        if (k0 + j < N) tmax = fmaxf(tmax, s[j]);
+      const float m_new = fmaxf(m[r], warp_max(tmax));  // finite: key 0 is in tile 0
+      float le = 0.f, ae = 0.f;
+      for (int j = lane; j < kKT; j += 32)
+        if (k0 + j < N) {
+          const float e = expf(s[j] - m_new);
+          le += e;
+          ae += e * dp[j];
+        }
+      const float alpha = expf(m[r] - m_new);  // 0 on the first tile
+      l[r] = fmaf(l[r], alpha, warp_sum(le));
+      a[r] = fmaf(a[r], alpha, warp_sum(ae));
+      m[r] = m_new;
     }
   }
-  __syncthreads();
+
+  const int64_t srow = ((int64_t)b * H + h) * S;  // stats are (3, B, H, S)
+  const int64_t splane = (int64_t)gridDim.z * H * S;
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = warp + 8 * r, qi = q0 + i;
+      const float dsum = a[r] / l[r];
+      st[i] = m[r];
+      st[kQT + i] = l[r];
+      st[2 * kQT + i] = dsum;
+      if (qi < S) {
+        stats[srow + qi] = m[r];
+        stats[splane + srow + qi] = l[r];
+        stats[2 * splane + srow + qi] = dsum;
+      }
+    }
+  }
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int i0 = ty * 2, d0 = tx * TN;
   float acc[2][TN];
   zero(acc);
-  mac(acc, dS + i0 * LDP, LDP, 1, Ks + d0, LD, 1, N);
+  for (int k0 = 0; k0 < N; k0 += kKT) {
+    __syncthreads();  // the previous tile's K and dS fully read (and st written)
+    load_keys<PREFIX, HD>(Ks, LD, pkb, base + D, k0, kKT, P, S, D, hd);
+    load_keys<PREFIX, HD>(Vs, LD, pvb, base + 2 * D, k0, kKT, P, S, D, hd);
+    __syncthreads();
+    scaled_products<MASK>(Qs, Ks, Ss, LD, LDK, HD, scale, MASK ? mrow + k0 : nullptr, S,
+                          S - q0, N - k0);
+    scaled_products<false>(Gs, Vs, dS, LD, LDK, HD, 1.f, nullptr, 0, 0, 0);
+    __syncthreads();
+    // dS exactly as attn_bwd_dkdv_kernel forms it from the stored statistics
+    for (int e = threadIdx.x; e < kQT * kKT; e += kThreads) {
+      const int i = e / kKT, j = e % kKT;
+      float p = expf(Ss[i * LDK + j] - st[i]) / st[kQT + i];
+      if (q0 + i >= S || k0 + j >= N) p = 0.f;
+      dS[i * LDK + j] = round_to<T>(p * (dS[i * LDK + j] - st[2 * kQT + i]));
+    }
+    __syncthreads();
+    mac(acc, dS + i0 * LDK, LDK, 1, Ks + d0, LD, 1, kKT);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + i0 + r;
     if (qi < S) {
 #pragma unroll
       for (int c = 0; c < TN; ++c)
-        dqkv[((int64_t)b * S + qi) * 3 * D + h * HD + d0 + c] = from_f<T>(acc[r][c] * scale);
+        if (d0 + c < hd)
+          dqkv[((int64_t)b * S + qi) * 3 * D + (int64_t)h * hd + d0 + c] =
+              from_f<T>(acc[r][c] * scale);
     }
   }
 }
@@ -345,13 +671,13 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
                      const T* __restrict__ pv, int64_t pk_bstride, int64_t pv_bstride,
                      const float* __restrict__ mask, const T* __restrict__ g,
                      T* __restrict__ dqkv, T* __restrict__ dpk, T* __restrict__ dpv,
-                     const float* __restrict__ stats, int S, int P, int H, float scale) {
+                     const float* __restrict__ stats, int S, int P, int H, int hd, float scale) {
   constexpr bool PREFIX = MODE == kPrefix, MASK = MODE == kMasked;
   constexpr int LD = HD + 1;
   constexpr int TN = HD / 16;
   constexpr int LDK = kKT + 1;
   P = PREFIX ? P : 0;  // a compile-time 0 without a prefix
-  const int D = H * HD, N = P + S;
+  const int D = H * hd, N = P + S;
   extern __shared__ float smem[];
   float* Ks = smem;             // kKT x LD
   float* Vs = Ks + kKT * LD;    // kKT x LD
@@ -361,15 +687,15 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
   float* dS = Pb + kQT * LDK;   // kQT x LDK
   float* st = dS + kQT * LDK;   // 3 x kQT: max, sum, rowsum(dP * P)
   const int k0 = blockIdx.x * kKT, h = blockIdx.y, b = blockIdx.z;
-  const T* base = qkv + (int64_t)b * S * 3 * D + h * HD;
-  const T* gbase = g + (int64_t)b * S * D + h * HD;
-  const T* pkb = PREFIX ? pk + (int64_t)b * pk_bstride + h * HD : nullptr;
-  const T* pvb = PREFIX ? pv + (int64_t)b * pv_bstride + h * HD : nullptr;
+  const T* base = qkv + (int64_t)b * S * 3 * D + (int64_t)h * hd;
+  const T* gbase = g + (int64_t)b * S * D + (int64_t)h * hd;
+  const T* pkb = PREFIX ? pk + b * pk_bstride + (int64_t)h * hd : nullptr;
+  const T* pvb = PREFIX ? pv + b * pv_bstride + (int64_t)h * hd : nullptr;
   const int64_t srow = ((int64_t)b * H + h) * S;
   const int64_t splane = (int64_t)gridDim.z * H * S;
 
-  load_keys<PREFIX>(Ks, LD, pkb, base + D, k0, kKT, P, S, D, HD);
-  load_keys<PREFIX>(Vs, LD, pvb, base + 2 * D, k0, kKT, P, S, D, HD);
+  load_keys<PREFIX, HD>(Ks, LD, pkb, base + D, k0, kKT, P, S, D, hd);
+  load_keys<PREFIX, HD>(Vs, LD, pvb, base + 2 * D, k0, kKT, P, S, D, hd);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float dv[4][TN], dk[4][TN];
@@ -377,8 +703,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
   zero(dk);
   for (int q0 = 0; q0 < S; q0 += kQT) {
     __syncthreads();  // previous tile's Pb/dS/Qs/Gs fully consumed
-    load_tile(Qs, LD, base, 3 * D, q0, kQT, S, HD);
-    load_tile(Gs, LD, gbase, D, q0, kQT, S, HD);
+    load_tile<HD>(Qs, LD, base, 3 * D, q0, kQT, S, hd);
+    load_tile<HD>(Gs, LD, gbase, D, q0, kQT, S, hd);
     for (int e = threadIdx.x; e < kQT; e += blockDim.x) {
       const bool ok = q0 + e < S;
       st[e] = ok ? stats[srow + q0 + e] : 0.f;
@@ -401,7 +727,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
         for (int c = 0; c < 4; ++c) {
           const int j = j0 + c;
           // __fmul_rn / __fadd_rn: never fused, so sv is the score the dq
-          // kernel stored
+          // kernel formed
           float sv = __fmul_rn(s[r][c], scale);
           if (MASK && row_ok && k0 + j < N)
             sv = __fadd_rn(sv, mask[(int64_t)(q0 + i) * S + k0 + j]);
@@ -423,17 +749,19 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
     T* krow = nullptr;
     T* vrow = nullptr;
     if (PREFIX && kj < P) {
-      krow = dpk + ((int64_t)b * P + kj) * D + h * HD + tx * TN;
-      vrow = dpv + ((int64_t)b * P + kj) * D + h * HD + tx * TN;
+      krow = dpk + ((int64_t)b * P + kj) * D + (int64_t)h * hd + tx * TN;
+      vrow = dpv + ((int64_t)b * P + kj) * D + (int64_t)h * hd + tx * TN;
     } else if (kj < N) {
-      krow = dqkv + ((int64_t)b * S + kj - P) * 3 * D + D + h * HD + tx * TN;
+      krow = dqkv + ((int64_t)b * S + kj - P) * 3 * D + D + (int64_t)h * hd + tx * TN;
       vrow = krow + D;
     }
     if (krow != nullptr) {
 #pragma unroll
       for (int c = 0; c < TN; ++c) {
-        krow[c] = from_f<T>(dk[r][c] * scale);
-        vrow[c] = from_f<T>(dv[r][c]);
+        if (tx * TN + c < hd) {
+          krow[c] = from_f<T>(dk[r][c] * scale);
+          vrow[c] = from_f<T>(dv[r][c]);
+        }
       }
     }
   }
@@ -441,70 +769,87 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ pk,
 
 // ------------------------------------------------------------------ launch
 
-inline size_t fwd_smem(int N, int hd) {
-  const int Np = round_up(N, kKT), LD = hd + 1;
-  return sizeof(float) * ((size_t)kQT * LD + 2 * (size_t)Np * LD + (size_t)kQT * (Np + 1));
+template <typename T, int HDP>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(T) * (size_t)5 * FwdTile<T, HDP>::kElems +
+         (std::is_same<T, float>::value ? sizeof(float) * 4 * 16 * (kKT + 4) : 0);
 }
 
-inline size_t bwd_dq_smem(int N, int hd) {
-  const int Np = round_up(N, kKT), LD = hd + 1;
-  return sizeof(float) * (2 * (size_t)kQT * LD + 2 * (size_t)Np * LD + 2 * (size_t)kQT * (Np + 1));
+inline size_t bwd_dq_smem(int hdp) {
+  const int LD = hdp + 1;
+  return sizeof(float) * (2 * (size_t)kQT * LD + 2 * (size_t)kKT * LD +
+                          2 * (size_t)kQT * (kKT + 1) + 3 * (size_t)kQT);
 }
 
-inline size_t bwd_dkdv_smem(int hd) {
-  const int LD = hd + 1;
+inline size_t bwd_dkdv_smem(int hdp) {
+  const int LD = hdp + 1;
   return sizeof(float) * (2 * (size_t)kKT * LD + 2 * (size_t)kQT * LD +
                           2 * (size_t)kQT * (kKT + 1) + 3 * (size_t)kQT);
 }
 
-// What the kernels take: at most 65535 images and heads (grid y and z), P + S
-// keys in 1 ... kMaxKeys, hd 16, 32 or 64, float32 (0) or bfloat16 (1).
+// What the kernels take: at most 65535 images and heads (grid z and y), any
+// S >= 1 and P >= 0, hd 1 ... kMaxHeadDim, float32 (0) or bfloat16 (1).
 inline bool supported(int B, int S, int P, int H, int hd, int dtype) {
-  return B > 0 && S > 0 && P >= 0 && P + S <= kMaxKeys && H > 0 && B <= 65535 &&
-         H <= 65535 && (hd == 16 || hd == 32 || hd == 64) && (dtype == 0 || dtype == 1);
+  return B > 0 && S > 0 && P >= 0 && H > 0 && B <= 65535 && H <= 65535 && hd > 0 &&
+         hd <= kMaxHeadDim && (dtype == 0 || dtype == 1);
 }
 
-template <typename T, int HD, int MODE>
+// Whether every row the forward stages starts on a 16-byte boundary and
+// holds whole 16-byte chunks, so cp.async can copy it.
+template <typename T, bool PREFIX>
+bool fwd_vectorizable(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
+                      int64_t pv_bstride, int hd) {
+  constexpr int chunk = 16 / sizeof(T);
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  bool ok = aligned(qkv) && hd % chunk == 0;
+  if (PREFIX) ok = ok && aligned(pk) && aligned(pv) && pk_bstride % chunk == 0 &&
+                   pv_bstride % chunk == 0;
+  return ok;
+}
+
+template <typename T, int HDP, int MODE>
 cudaError_t launch_fwd(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
                        int64_t pv_bstride, const float* mask, void* out, int B, int S, int P,
-                       int H, float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem(P + S, HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, HD, MODE>,
+                       int H, int hd, float scale, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<T, HDP>();
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, HDP, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kQT - 1) / kQT, H, B);
-  attn_fwd_kernel<T, HD, MODE><<<grid, kThreads, smem, stream>>>(
+  const bool vec =
+      fwd_vectorizable<T, MODE == kPrefix>(qkv, pk, pv, pk_bstride, pv_bstride, hd);
+  dim3 grid((S + kFwdQT - 1) / kFwdQT, H, B);
+  attn_fwd_kernel<T, HDP, MODE><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(pk), static_cast<const T*>(pv),
-      pk_bstride, pv_bstride, mask, static_cast<T*>(out), S, P, H, scale);
+      pk_bstride, pv_bstride, mask, static_cast<T*>(out), S, P, H, hd, scale, vec);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, int MODE>
+template <typename T, int HDP, int MODE>
 cudaError_t launch_bwd(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
                        int64_t pv_bstride, const float* mask, const void* g, void* dqkv,
-                       void* dpk, void* dpv, void* stats, int B, int S, int P, int H,
+                       void* dpk, void* dpv, void* stats, int B, int S, int P, int H, int hd,
                        float scale, cudaStream_t stream) {
-  const size_t smem1 = bwd_dq_smem(P + S, HD), smem2 = bwd_dkdv_smem(HD);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, HD, MODE>,
+  const size_t smem1 = bwd_dq_smem(HDP), smem2 = bwd_dkdv_smem(HDP);
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, HDP, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, HD, MODE>,
+  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, HDP, MODE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
   if (err != cudaSuccess) return err;
   const T* pk_ = static_cast<const T*>(pk);
   const T* pv_ = static_cast<const T*>(pv);
   dim3 grid1((S + kQT - 1) / kQT, H, B);
-  attn_bwd_dq_kernel<T, HD, MODE><<<grid1, kThreads, smem1, stream>>>(
+  attn_bwd_dq_kernel<T, HDP, MODE><<<grid1, kThreads, smem1, stream>>>(
       static_cast<const T*>(qkv), pk_, pv_, pk_bstride, pv_bstride, mask,
-      static_cast<const T*>(g), static_cast<T*>(dqkv), static_cast<float*>(stats), S, P, H,
+      static_cast<const T*>(g), static_cast<T*>(dqkv), static_cast<float*>(stats), S, P, H, hd,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid2((P + S + kKT - 1) / kKT, H, B);
-  attn_bwd_dkdv_kernel<T, HD, MODE><<<grid2, kThreads, smem2, stream>>>(
+  attn_bwd_dkdv_kernel<T, HDP, MODE><<<grid2, kThreads, smem2, stream>>>(
       static_cast<const T*>(qkv), pk_, pv_, pk_bstride, pv_bstride, mask,
       static_cast<const T*>(g), static_cast<T*>(dqkv), static_cast<T*>(dpk),
-      static_cast<T*>(dpv), static_cast<const float*>(stats), S, P, H, scale);
+      static_cast<T*>(dpv), static_cast<const float*>(stats), S, P, H, hd, scale);
   return cudaGetLastError();
 }
 
@@ -523,17 +868,20 @@ cudaError_t attn_fwd(const void* qkv, const void* pk, const void* pv, int64_t pk
                      int H, int hd, int dtype, float scale, cudaStream_t st) {
   if (!supported(B, S, P, H, hd, dtype) || !mode_inputs_ok<MODE>(P, mask))
     return cudaErrorInvalidValue;
-#define LCT_FWD(T, HD)                                                                       \
-  return launch_fwd<T, HD, MODE>(qkv, pk, pv, pk_bstride, pv_bstride, mask, out, B, S, P, H, \
-                                 scale, st)
+#define LCT_FWD(T, HDP)                                                                       \
+  return launch_fwd<T, HDP, MODE>(qkv, pk, pv, pk_bstride, pv_bstride, mask, out, B, S, P, H, \
+                                  hd, scale, st)
+  const int hdp = padded_head_dim(hd);
   if (dtype == 0) {
-    if (hd == 16) LCT_FWD(float, 16);
-    if (hd == 32) LCT_FWD(float, 32);
-    LCT_FWD(float, 64);
+    if (hdp == 16) LCT_FWD(float, 16);
+    if (hdp == 32) LCT_FWD(float, 32);
+    if (hdp == 64) LCT_FWD(float, 64);
+    LCT_FWD(float, 128);
   }
-  if (hd == 16) LCT_FWD(__nv_bfloat16, 16);
-  if (hd == 32) LCT_FWD(__nv_bfloat16, 32);
-  LCT_FWD(__nv_bfloat16, 64);
+  if (hdp == 16) LCT_FWD(__nv_bfloat16, 16);
+  if (hdp == 32) LCT_FWD(__nv_bfloat16, 32);
+  if (hdp == 64) LCT_FWD(__nv_bfloat16, 64);
+  LCT_FWD(__nv_bfloat16, 128);
 #undef LCT_FWD
 }
 
@@ -544,17 +892,20 @@ cudaError_t attn_bwd(const void* qkv, const void* pk, const void* pv, int64_t pk
                      int dtype, float scale, cudaStream_t st) {
   if (!supported(B, S, P, H, hd, dtype) || !mode_inputs_ok<MODE>(P, mask))
     return cudaErrorInvalidValue;
-#define LCT_BWD(T, HD)                                                                     \
-  return launch_bwd<T, HD, MODE>(qkv, pk, pv, pk_bstride, pv_bstride, mask, g, dqkv, dpk, \
-                                 dpv, stats, B, S, P, H, scale, st)
+#define LCT_BWD(T, HDP)                                                                     \
+  return launch_bwd<T, HDP, MODE>(qkv, pk, pv, pk_bstride, pv_bstride, mask, g, dqkv, dpk, \
+                                  dpv, stats, B, S, P, H, hd, scale, st)
+  const int hdp = padded_head_dim(hd);
   if (dtype == 0) {
-    if (hd == 16) LCT_BWD(float, 16);
-    if (hd == 32) LCT_BWD(float, 32);
-    LCT_BWD(float, 64);
+    if (hdp == 16) LCT_BWD(float, 16);
+    if (hdp == 32) LCT_BWD(float, 32);
+    if (hdp == 64) LCT_BWD(float, 64);
+    LCT_BWD(float, 128);
   }
-  if (hd == 16) LCT_BWD(__nv_bfloat16, 16);
-  if (hd == 32) LCT_BWD(__nv_bfloat16, 32);
-  LCT_BWD(__nv_bfloat16, 64);
+  if (hdp == 16) LCT_BWD(__nv_bfloat16, 16);
+  if (hdp == 32) LCT_BWD(__nv_bfloat16, 32);
+  if (hdp == 64) LCT_BWD(__nv_bfloat16, 64);
+  LCT_BWD(__nv_bfloat16, 128);
 #undef LCT_BWD
 }
 

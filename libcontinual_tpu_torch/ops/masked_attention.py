@@ -78,9 +78,6 @@ def masked_attention_bwd_plain(
 
 def _check(qkv: torch.Tensor, mask: torch.Tensor, heads: int, name: str) -> Tuple[int, int, int, int]:
     b, s, d, hd = _check_packed(qkv, heads, name)
-    max_s = _lib().lct_mqkv_max_seq()
-    if not 0 < s <= max_s:
-        raise ValueError(f"{name}: sequence length {s} outside 1..{max_s}")
     if mask.dtype != torch.float32:
         raise TypeError(f"{name}: mask dtype {mask.dtype}, expected float32")
     if tuple(mask.shape) != (s, s) or mask.device != qkv.device:

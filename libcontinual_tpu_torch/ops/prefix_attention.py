@@ -127,9 +127,6 @@ def _check(qkv, pk, pv, heads: int, name: str):
     p = pk.shape[1]
     if pv.shape[1] != p or p < 1:
         raise ValueError(f"{name}: pk has {p} rows and pv {pv.shape[1]}; need the same, >= 1")
-    max_keys = _lib().lct_pqkv_max_keys()
-    if not 0 < s + p <= max_keys:
-        raise ValueError(f"{name}: S + P = {s} + {p} keys outside 1..{max_keys}")
     return pk, pv, (b, s, p, d, hd)
 
 

@@ -29,6 +29,10 @@ F32_TOL = 1e-5
 BF16_TOL = 1.6e-2
 
 SHAPES = [(2, 13, 4, 16), (1, 17, 2, 32), (2, 9, 1, 64)]  # (B, S, H, hd)
+# past the 256 keys and the 16/32/64 head dims of the port's first kernels:
+# S 300 at hd 128, S 260 at hd 48 (no power of two)
+LONG_SHAPES = [(1, 300, 2, 128), (1, 260, 1, 48)]
+SHAPES += LONG_SHAPES
 
 
 def _inputs(b, s, h, hd, seed=0):
@@ -103,6 +107,22 @@ def test_plain_versions_match_pallas_bodies_bf16():
     out_t = T.qkv_attention_plain(qkv_t, scale, h)
     dqkv_t = T.qkv_attention_bwd_plain(qkv_t, g_t, scale, h)
     assert out_t.dtype == dqkv_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(out_t.float().numpy(), out_p, atol=BF16_TOL, rtol=0)
+    np.testing.assert_allclose(dqkv_t.float().numpy(), dqkv_p, atol=BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES)
+def test_plain_versions_match_pallas_bodies_bf16_long(shape):
+    b, s, h, hd = shape
+    qkv, g = _inputs(b, s, h, hd, seed=5)
+    scale = 1.0 / np.sqrt(hd)
+    qkv_j, g_j = jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    out_p = np.asarray(_pallas_fwd(qkv_j, scale, h).astype(jnp.float32))
+    dqkv_p = np.asarray(_pallas_bwd(qkv_j, g_j, scale, h).astype(jnp.float32))
+    qkv_t = torch.from_numpy(np.array(qkv_j.astype(jnp.float32))).bfloat16()
+    g_t = torch.from_numpy(np.array(g_j.astype(jnp.float32))).bfloat16()
+    out_t = T.qkv_attention_plain(qkv_t, scale, h)
+    dqkv_t = T.qkv_attention_bwd_plain(qkv_t, g_t, scale, h)
     np.testing.assert_allclose(out_t.float().numpy(), out_p, atol=BF16_TOL, rtol=0)
     np.testing.assert_allclose(dqkv_t.float().numpy(), dqkv_p, atol=BF16_TOL, rtol=0)
 

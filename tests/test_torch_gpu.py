@@ -33,8 +33,16 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
 
 
+# (B, S, H, hd). Every S here is a key count that is no multiple of the
+# 64-key tile; S 300 is past the 256 keys of the port's first kernels, hd 48
+# and 128 past their 16/32/64 head dims, hd 20 (40 bytes a row) takes the
+# element-wise staging instead of the 16-byte copies
+LONG_SHAPES = [(1, 300, 2, 128), (2, 260, 3, 48), (2, 33, 3, 20)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 70, 2, 32), (2, 197, 12, 64)])
+@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 70, 2, 32), (2, 197, 12, 64),
+                                   *LONG_SHAPES])
 def test_kernels_match_plain(cuda, dtype, shape):
     b, s, h, hd = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -56,11 +64,17 @@ def test_autograd_function_launches_both_kernels(cuda):
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
-    # (B, S, 3D) with D 64: 4 heads of 16
-    with pytest.raises(ValueError, match="sequence length"):
-        T.qkv_attention_cuda(torch.zeros(1, 300, 192, device=cuda), 0.25, 4)
+    # S 300 runs (no key ceiling) and matches the plain version
+    qkv = torch.randn(1, 300, 192, device=cuda)
+    out = T.qkv_attention_cuda(qkv, 0.25, 4)
+    assert _err(out, T.qkv_attention_plain(qkv, 0.25, 4)) <= TOL[torch.float32]
+    # (B, S, 3D) with D 64: 3 heads do not divide it; D 160 in one head is past hd 128
     with pytest.raises(ValueError, match="head dim"):
         T.qkv_attention_cuda(torch.zeros(1, 8, 192, device=cuda), 0.25, 3)
+    with pytest.raises(ValueError, match="head dim 160/1"):
+        T.qkv_attention_cuda(torch.zeros(1, 8, 480, device=cuda), 0.25, 1)
+    with pytest.raises(ValueError, match="grid"):
+        T.qkv_attention_cuda(torch.zeros(65536, 1, 48, device=cuda), 0.25, 1)
     with pytest.raises(TypeError):
         T.qkv_attention_cuda(torch.zeros(1, 8, 192, device=cuda, dtype=torch.float16), 0.25, 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -81,7 +95,11 @@ def _prefix_inputs(cuda, shape, dtype, layout):
 @pytest.mark.parametrize("layout", ["image", "broadcast"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 17, 3, 4, 16), (3, 70, 1, 2, 32), (2, 197, 10, 12, 64),
-                                   (1, 59, 5, 2, 64)])  # (B, S, P, H, hd); 59 + 5 = one key tile
+                                   (1, 59, 5, 2, 64),  # (B, S, P, H, hd); 59 + 5 = one key tile
+                                   # 257 keys at hd 128; P 70 past the first key tile, so
+                                   # the second tile straddles P; hd 48; hd 20
+                                   (2, 250, 7, 2, 128), (2, 230, 70, 2, 64),
+                                   (2, 260, 4, 3, 48), (2, 33, 3, 3, 20)])
 def test_prefix_kernels_match_plain(cuda, dtype, shape, layout):
     hd = shape[-1]
     qkv, pk, pv, go = _prefix_inputs(cuda, shape, dtype, layout)
@@ -108,18 +126,21 @@ def test_prefix_autograd_function_launches_both_kernels(cuda):
 
 
 def test_prefix_wrappers_refuse_what_the_kernel_does_not_take(cuda):
-    qkv = torch.zeros(1, 250, 192, device=cuda)
-    with pytest.raises(ValueError, match="S \\+ P"):
-        PT.prefix_attention_cuda(qkv, torch.zeros(1, 7, 64, device=cuda),
-                                 torch.zeros(1, 7, 64, device=cuda), 0.25, 4)
+    # S + P = 257 keys runs (no key ceiling) and matches the plain version
+    qkv = torch.randn(1, 250, 192, device=cuda)
+    pk, pv = torch.randn(1, 7, 64, device=cuda), torch.randn(1, 7, 64, device=cuda)
+    out = PT.prefix_attention_cuda(qkv, pk, pv, 0.25, 4)
+    assert _err(out, PT.prefix_attention_plain(qkv, pk, pv, 0.25, 4)) <= TOL[torch.float32]
     pk = torch.zeros(1, 6, 64, device=cuda)
-    assert PT.prefix_attention_cuda(qkv, pk, pk, 0.25, 4).shape == (1, 250, 64)  # 256 keys
     with pytest.raises(ValueError, match="same"):
         PT.prefix_attention_cuda(qkv[:, :8], pk, pk[:, :2], 0.25, 4)
     with pytest.raises(ValueError, match="does not match"):
         PT.prefix_attention_cuda(qkv[:, :8], pk.bfloat16(), pk.bfloat16(), 0.25, 4)
     with pytest.raises(ValueError, match="head dim"):
         PT.prefix_attention_cuda(qkv[:, :8], pk, pk, 0.25, 3)
+    wide = torch.zeros(1, 6, 160, device=cuda)  # one head of 160
+    with pytest.raises(ValueError, match="head dim 160/1"):
+        PT.prefix_attention_cuda(torch.zeros(1, 8, 480, device=cuda), wide, wide, 0.25, 1)
 
 
 def _masked_inputs(cuda, shape, dtype, kind):
@@ -136,7 +157,8 @@ def _masked_inputs(cuda, shape, dtype, kind):
 
 @pytest.mark.parametrize("kind", ["causal", "random"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 77, 8, 64), (2, 70, 2, 32)])
+@pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 77, 8, 64), (2, 70, 2, 32),
+                                   *LONG_SHAPES])
 def test_masked_kernels_match_plain(cuda, dtype, shape, kind):
     qkv, mask, go = _masked_inputs(cuda, shape, dtype, kind)
     h, hd = shape[2], shape[3]

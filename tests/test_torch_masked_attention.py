@@ -30,6 +30,9 @@ BF16_TOL = 1.6e-2
 
 # (B, S, H, hd): odd S, and the text tower's 77 at the tiny model's hd 16
 SHAPES = [(2, 13, 4, 16), (1, 17, 2, 32), (2, 9, 1, 64), (2, 77, 4, 16)]
+# past 256 keys and the 16/32/64 head dims: S 300 at hd 128, S 260 at hd 48
+LONG_SHAPES = [(1, 300, 2, 128), (1, 260, 1, 48)]
+SHAPES += LONG_SHAPES
 MASKS = ["causal", "random"]
 
 
@@ -122,6 +125,23 @@ def test_plain_versions_match_pallas_bodies_bf16(kind):
     out_t = T.masked_attention_plain(qkv_t, m, scale, h)
     grad_t = T.masked_attention_bwd_plain(qkv_t, m, g_t, scale, h)
     assert out_t.dtype == grad_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(out_t.float().numpy(), out_p, atol=BF16_TOL, rtol=0)
+    np.testing.assert_allclose(grad_t.float().numpy(), grad_p, atol=BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", MASKS)
+@pytest.mark.parametrize("shape", LONG_SHAPES)
+def test_plain_versions_match_pallas_bodies_bf16_long(shape, kind):
+    b, s, h, hd = shape
+    qkv, mask, g = _inputs(b, s, h, hd, kind, seed=5)
+    qkv_j, g_j = (jnp.asarray(a, jnp.bfloat16) for a in (qkv, g))
+    scale = 1.0 / np.sqrt(hd)
+    out_p = np.asarray(_pallas_fwd(qkv_j, jnp.asarray(mask), scale, h).astype(jnp.float32))
+    grad_p = np.asarray(_pallas_bwd(qkv_j, jnp.asarray(mask), g_j, scale, h).astype(jnp.float32))
+    qkv_t, g_t = (torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16() for a in (qkv_j, g_j))
+    m = torch.from_numpy(mask)
+    out_t = T.masked_attention_plain(qkv_t, m, scale, h)
+    grad_t = T.masked_attention_bwd_plain(qkv_t, m, g_t, scale, h)
     np.testing.assert_allclose(out_t.float().numpy(), out_p, atol=BF16_TOL, rtol=0)
     np.testing.assert_allclose(grad_t.float().numpy(), grad_p, atol=BF16_TOL, rtol=0)
 

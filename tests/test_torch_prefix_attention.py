@@ -29,6 +29,10 @@ BF16_TOL = 1.6e-2
 
 # (B, S, P, H, hd): P 1, odd S, and P longer than S
 SHAPES = [(2, 13, 3, 4, 16), (1, 17, 1, 2, 32), (2, 9, 10, 1, 64), (3, 5, 4, 2, 16)]
+# P + S = 257 keys at hd 128, past the port's first kernels' 256; S 260 at
+# hd 48 (no power of two)
+LONG_SHAPES = [(1, 250, 7, 2, 128), (1, 260, 4, 1, 48)]
+SHAPES += LONG_SHAPES
 
 
 def _inputs(b, s, p, h, hd, seed=0):
@@ -112,6 +116,21 @@ def test_plain_versions_match_pallas_bodies_bf16():
     out_t = T.prefix_attention_plain(*t[:3], scale, h)
     grads_t = T.prefix_attention_bwd_plain(*t, scale, h)
     assert out_t.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in grads_t)
+    np.testing.assert_allclose(out_t.float().numpy(), out_p, atol=BF16_TOL, rtol=0)
+    for name, a, j in zip(("dqkv", "dpk", "dpv"), grads_t, grads_p):
+        np.testing.assert_allclose(a.float().numpy(), j, atol=BF16_TOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES)
+def test_plain_versions_match_pallas_bodies_bf16_long(shape):
+    b, s, p, h, hd = shape
+    arrays = [jnp.asarray(x, jnp.bfloat16) for x in _inputs(b, s, p, h, hd, seed=5)]
+    scale = 1.0 / np.sqrt(hd)
+    out_p = np.asarray(_pallas_fwd(*arrays[:3], scale, h).astype(jnp.float32))
+    grads_p = [np.asarray(x.astype(jnp.float32)) for x in _pallas_bwd(*arrays, scale, h)]
+    t = [torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16() for x in arrays]
+    out_t = T.prefix_attention_plain(*t[:3], scale, h)
+    grads_t = T.prefix_attention_bwd_plain(*t, scale, h)
     np.testing.assert_allclose(out_t.float().numpy(), out_p, atol=BF16_TOL, rtol=0)
     for name, a, j in zip(("dqkv", "dpk", "dpv"), grads_t, grads_p):
         np.testing.assert_allclose(a.float().numpy(), j, atol=BF16_TOL, rtol=0, err_msg=name)
