@@ -10,7 +10,8 @@ which raises on failure:
   2. build: the kernel libraries ``libcontinual_tpu_torch/ops/csrc/attention.cu``
      and ``conv.cu`` (one ``nvcc`` each, started together), with their ptxas
      reports, and the count of HMMA instructions (tensor-core products) in
-     the SASS of each bf16 packed forward (none in the f32 ones);
+     the SASS of each bf16 instantiation of the packed forward and of both
+     backward kernels (none in the f32 ones);
   3. kernel checks, forward and backward, against the plain PyTorch versions:
      the packed-qkv kernels at a small odd shape (f32, bf16) and at the
      slices' shapes (B 16, S 197, 202 and 222, D 768, 12 heads, bf16); the
@@ -21,7 +22,11 @@ which raises on failure:
      bf16, with the causal mask and with a random finite one) and at the
      CLIP text tower's (B 16, S 77, D 512, 8 heads, bf16, causal); all three
      families also past the first kernels' limits (``LONG``, ``P_LONG``,
-     ``M_LONG``: S 300 at hd 128, 257 keys, hd 48 and 20); the 3x3
+     ``M_LONG``: S 300 at hd 128, 257 keys, hd 48 and 20) and at the edges of
+     the tensor-core kernels' 16- and 64-row tiles (``EDGE``, ``P_EDGE``,
+     ``M_EDGE``: S 16, 64, 65 and 128 at hd 64; P + S 64 and 65); each bf16
+     backward twice at its timed shape, whose two results must be equal bit
+     for bit; the 3x3
      convolution kernels (y, dx through the forward kernel on the rotated
      taps, and dw) at small odd shapes (f32, bf16, C 3 and 20, a 4 x 4 image)
      and at resnet18's CIFAR stem and four stages at B 128 (bf16);
@@ -42,7 +47,8 @@ which raises on failure:
      ``conv3x3`` (the kernels), which must agree with the modules' own cuDNN
      results (y, dx, dw);
   5. timing: each attention kernel against its plain version and against
-     ``scaled_dot_product_attention`` on the flash and cuDNN backends, and
+     ``scaled_dot_product_attention`` on the flash and cuDNN backends (the
+     backward's dq and dk/dv kernels also apart, from ``torch.profiler``), and
      each conv kernel against its
      plain version and cuDNN (the yardsticks, which the port never calls) at
      the main path's shapes; the L2P, DualPrompt and MoE-Adapter4CL train
@@ -121,6 +127,14 @@ P_LONG = [((2, 250, 7, 256, 2), torch.bfloat16, "broadcast"),
           ((2, 260, 4, 144, 3), torch.bfloat16, "image")]
 M_LONG = [((1, 300, 256, 2), torch.bfloat16, "causal"), ((2, 260, 144, 3), torch.float32, "random"),
           ((2, 33, 60, 3), torch.bfloat16, "causal")]
+# the edges of the tensor-core kernels' tiles at hd 64: a warp's 16 rows and
+# a block's 64 (S 16, 64, 65, 128); prefix P + S = 64, 65, 128 and 130
+EDGE = [((2, s, 128, 2), dtype) for s in (16, 64, 65, 128)
+        for dtype in (torch.float32, torch.bfloat16)]
+P_EDGE = [((2, s, p, 128, 2), dtype, "image") for s, p in ((16, 48), (64, 1), (65, 63), (128, 2))
+          for dtype in (torch.float32, torch.bfloat16)]
+M_EDGE = [((2, s, 128, 2), dtype, kind) for s in (16, 64, 65, 128)
+          for dtype, kind in ((torch.float32, "random"), (torch.bfloat16, "causal"))]
 
 # the 3x3 convolution (B, H, W, C, O): small odd shapes, and resnet18's CIFAR
 # stem and four stages at batch 128 (bf16), the shapes its iCaRL path gives
@@ -435,25 +449,33 @@ def phase_build():
     _check_tensor_cores(_build)
 
 
+#: the packed, prefix and masked kernels, each instantiated for 3 modes x 4
+#: head dims x {f32, bf16}
+TENSOR_CORE_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+
+
 def _check_tensor_cores(_build):
-    """The bf16 attn_fwd_kernel instantiations run HMMA (the tensor cores'
-    mma.sync) in the built library's SASS, and the f32 ones none (CUDA-core
-    FMA: no TF32), as ``cuobjdump -sass`` shows."""
+    """The bf16 instantiations of the packed forward and of both backward
+    kernels run HMMA (the tensor cores' mma.sync) in the built library's
+    SASS, and the f32 ones none (CUDA-core FMA: no TF32), as ``cuobjdump
+    -sass`` shows."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.library_path("attention")],
                           capture_output=True, text=True, timeout=300, check=True).stdout
     hmma = {}
     for fn in sass.split("Function : ")[1:]:
-        m = re.search(r"lct\d+attn_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", fn.split()[0])
-        if m:
+        m = re.search(r"lct\d+(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E",
+                      fn.split()[0])
+        if m and m.group(1) in TENSOR_CORE_KERNELS:
             hmma[m.groups()] = len(re.findall(r"\bHMMA\.", fn))
-    bf16 = {k: n for k, n in hmma.items() if k[0] != "f"}
-    f32 = {k: n for k, n in hmma.items() if k[0] == "f"}
-    print(f"[build] SASS: HMMA instructions in each bf16 attn_fwd_kernel (mode, hd): "
-          f"{ {(int(k[2]), int(k[1])): n for k, n in sorted(bf16.items())} }; in the f32 ones: "
-          f"{sorted(set(f32.values()))}")
-    _require(len(bf16) == len(f32) == 12 and all(bf16.values()) and not any(f32.values()),
-             "the bf16 forward does not run on the tensor cores, or the f32 one does")
+    for kernel in TENSOR_CORE_KERNELS:
+        bf16 = {(int(mode), int(hd)): n for (k, typ, hd, mode), n in sorted(hmma.items())
+                if k == kernel and typ != "f"}
+        f32 = [n for (k, typ, _, _), n in hmma.items() if k == kernel and typ == "f"]
+        print(f"[build] SASS: HMMA instructions in each bf16 {kernel} (mode, hd): {bf16}; "
+              f"in the f32 ones: {sorted(set(f32))}")
+        _require(len(bf16) == len(f32) == 12 and all(bf16.values()) and not any(f32),
+                 f"the bf16 {kernel} does not run on the tensor cores, or an f32 one does")
 
 
 def _inputs(shape, dtype, dev, seed):
@@ -469,7 +491,7 @@ def phase_checks(dev, errs, checked):
     ``_shape_key`` of each checked shape to ``checked``."""
     A, _, _ = _attention_modules()
     cases = [(SMALL, torch.float32), (SMALL, torch.bfloat16)]
-    cases += [(shape, torch.bfloat16) for shape in MAIN] + LONG
+    cases += [(shape, torch.bfloat16) for shape in MAIN] + LONG + EDGE
     for i, (shape, dtype) in enumerate(cases):
         b, s, d, h = shape
         scale = (d // h) ** -0.5
@@ -514,7 +536,7 @@ def phase_prefix_checks(dev, errs, checked):
     cases = [(P_SMALL, torch.float32, "image"), (P_SMALL, torch.bfloat16, "image"),
              (P_SMALL, torch.float32, "broadcast")]
     cases += [(shape, torch.bfloat16, "image") for shape in P_MAIN]
-    cases += [(P_MAIN[0], torch.bfloat16, "broadcast")] + P_LONG
+    cases += [(P_MAIN[0], torch.bfloat16, "broadcast")] + P_LONG + P_EDGE
     for i, (shape, dtype, layout) in enumerate(cases):
         b, s, p, d, h = shape
         scale = (d // h) ** -0.5
@@ -575,7 +597,7 @@ def phase_masked_checks(dev, errs, checked):
     _, _, MA = _attention_modules()
     cases = [(shape, dtype, kind) for shape in M_SMALL for dtype in (torch.float32, torch.bfloat16)
              for kind in ("causal", "random")]
-    cases += [(shape, torch.bfloat16, "causal") for shape in M_MAIN] + M_LONG
+    cases += [(shape, torch.bfloat16, "causal") for shape in M_MAIN] + M_LONG + M_EDGE
     for i, (shape, dtype, kind) in enumerate(cases):
         b, s, d, h = shape
         scale = (d // h) ** -0.5
@@ -598,6 +620,29 @@ def phase_masked_checks(dev, errs, checked):
         if shape in M_MAIN:
             errs["mqkv_fwd"] = max(errs["mqkv_fwd"], abs_f)
             errs["mqkv_bwd"] = max(errs["mqkv_bwd"], abs_b)
+
+
+def phase_bwd_determinism(dev):
+    """Each bf16 backward twice at its timed shape: the gradients agree bit
+    for bit (no atomics; every sum runs in a fixed order)."""
+    A, PA, MA = _attention_modules()
+    h, ph, mh = TIMED[3], P_TIMED[4], M_TIMED[3]
+    qkv, go = _inputs(TIMED, torch.bfloat16, dev, seed=11)
+    pqkv, pk, pv, pgo = _prefix_inputs(P_TIMED, torch.bfloat16, dev, seed=12, layout="image")
+    mqkv, mask, mgo = _masked_inputs(M_TIMED, torch.bfloat16, dev, seed=13, kind="causal")
+    calls = {
+        ("qkv_bwd", TIMED): lambda: [A.qkv_attention_bwd_cuda(qkv, go, (TIMED[2] // h) ** -0.5, h)],
+        ("pqkv_bwd", P_TIMED): lambda: list(PA.prefix_attention_bwd_cuda(
+            pqkv, pk, pv, pgo, (P_TIMED[3] // ph) ** -0.5, ph)),
+        ("mqkv_bwd", M_TIMED): lambda: [MA.masked_attention_bwd_cuda(
+            mqkv, mask, mgo, (M_TIMED[2] // mh) ** -0.5, mh)],
+    }
+    for (name, shape), call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(first, second)]
+        print(f"[determinism] {name} twice at {shape} bf16: outputs bitwise equal {same}")
+        _require(all(same), f"{name}: two calls on the same inputs differ")
 
 
 def _conv_inputs(shape, dtype, dev, seed):
@@ -1447,14 +1492,43 @@ def _set_library(best, names):
     best["library_name"] = fastest
 
 
+def _device_us(evt) -> float:
+    """Device time of one ``key_averages`` row, in microseconds."""
+    us = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+
+
+def _bwd_split(fn, calls=10):
+    """{"dq": ms, "dkdv": ms}: the device time a call of ``fn`` (a backward
+    wrapper) spends in each of its two kernels, from a ``torch.profiler``
+    trace of ``calls`` calls after warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {"dq": 0.0, "dkdv": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for k in split:
+                if f"attn_bwd_{k}_kernel" in evt.key:
+                    split[k] += _device_us(evt) / 1e3 / calls
+    return split
+
+
 def _time_family(name, tag, kernels, plains, sdpa, card):
     """The forward and backward kernels of one family (``kernels`` and
     ``plains``: (forward, backward) functions) beside their plain versions
     and every SDPA run of ``sdpa`` ({name: (forward, forward + backward)}),
     each timed by ``_time_pair``; SDPA's backward is its forward + backward
-    minus its forward. Returns the forward's and the backward's best times,
-    each with the fastest SDPA time under "library" and its name under
-    "library_name"."""
+    minus its forward; the backward's two kernels apart by ``_bwd_split``.
+    Returns the forward's and the backward's best times, each with the
+    fastest SDPA time under "library" and its name under "library_name"
+    (the backward also its kernels' under "dq" and "dkdv")."""
     fwd = _time_pair(f"{name}_fwd at {tag}", {
         "plain": plains[0], **{n: f for n, (f, _) in sdpa.items()}, "kernel": kernels[0]}, card)
     bwd = _time_pair(f"{name}_bwd at {tag} (SDPA: forward + backward)", {
@@ -1463,6 +1537,11 @@ def _time_family(name, tag, kernels, plains, sdpa, card):
         bwd[n] -= fwd[n]
     print(f"[timing] {name}_bwd SDPA backward alone (forward + backward minus forward): "
           + ", ".join(f"{n} {bwd[n]:.4f} ms" for n in sdpa) + f" [{card}]")
+    bwd.update(_bwd_split(kernels[1]))
+    print(f"[timing] {name}_bwd kernels apart (torch.profiler, 10 calls): attn_bwd_dq_kernel "
+          f"{bwd['dq']:.4f} ms, attn_bwd_dkdv_kernel {bwd['dkdv']:.4f} ms, together "
+          f"{bwd['dq'] + bwd['dkdv']:.4f} ms; the whole call {bwd['kernel']:.4f} ms (CUDA "
+          f"events) [{card}]")
     for best in (fwd, bwd):
         _set_library(best, list(sdpa))
     return fwd, bwd
@@ -1801,9 +1880,7 @@ def _profile_step(method, state, batch, name, card, steps=3, lr=1e-3,
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops repeat the time of the kernels they launch
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        dev_us = _device_us(evt)
         if dev_us > 0:
             rows.append((dev_us / 1e3 / steps, evt.count / steps, evt.key))
     rows.sort(reverse=True)
@@ -1845,6 +1922,7 @@ def main() -> int:
     phase_checks(dev, errs, checked)
     phase_prefix_checks(dev, errs, checked)
     phase_masked_checks(dev, errs, checked)
+    phase_bwd_determinism(dev)
     phase_conv_checks(dev, errs, checked)
     t_gen = time.perf_counter()
     phase_generic_checks(dev, errs, checked)
@@ -1915,6 +1993,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": by,
             "library_ms": best["library"],
         }
+        if kname.endswith("qkv_bwd"):
+            entry["dq_ms"], entry["dkdv_ms"] = best["dq"], best["dkdv"]
         if kname.startswith("conv"):
             b, h, w, c, o = C_TIMED
             entry["library"] = "cuDNN"

@@ -23,13 +23,15 @@
 // The packed, prefix and masked kernels take any S and P (keys and values
 // stream through shared memory in 64-row tiles, nothing grows with S) and
 // hd 1-128, like the TPU bodies, which hold a head's (S, S) tile in VMEM.
-// Their bf16 forward runs its products on the tensor cores (mma.sync
-// m16n8k16, two passes over the key tiles so that the normalised P is
-// rounded before P . v, as the TPU bodies round it); the backward and the
-// f32 forward are f32 FMA on the CUDA cores. attention_kernels.cuh states
-// the design, the rounding points and what bounds the kernels on an H100:
-// the bytes (about 52 us forward at B 128, S 222; 9.4 us forward and 16.5 us
-// backward for the masked kernels at B 100, S 77, D 512 in bf16).
+// Their bf16 instantiations run every product on the tensor cores (mma.sync
+// m16n8k16): the forward in two passes over the key tiles so that the
+// normalised P is rounded before P . v, as the TPU bodies round it; the
+// backward as a per-query-tile dq kernel and a per-key-tile dk/dv kernel (no
+// atomics). The f32 instantiations are f32 FMA on the CUDA cores.
+// attention_kernels.cuh states the design, the rounding points and what
+// bounds the kernels on an H100: the bytes (about 52 us forward and 91 us
+// backward at B 128, S 222; 9.4 us forward and 16.5 us backward for the
+// masked kernels at B 100, S 77, D 512 in bf16).
 //
 // dtype: 0 = float32, 1 = bfloat16. Each function returns a cudaError_t (0 on
 // success; cudaErrorInvalidValue for a shape or dtype the kernels do not

@@ -38,11 +38,14 @@ def _err(a, b):
 # and 128 past their 16/32/64 head dims, hd 20 (40 bytes a row) takes the
 # element-wise staging instead of the 16-byte copies
 LONG_SHAPES = [(1, 300, 2, 128), (2, 260, 3, 48), (2, 33, 3, 20)]
+# the edges of the tensor-core kernels' tiles at hd 64: a warp's 16 rows and
+# a block's 64 (S 16, 64, 65, 128)
+EDGE_SHAPES = [(2, 16, 2, 64), (2, 64, 2, 64), (2, 65, 2, 64), (2, 128, 2, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 70, 2, 32), (2, 197, 12, 64),
-                                   *LONG_SHAPES])
+                                   *LONG_SHAPES, *EDGE_SHAPES])
 def test_kernels_match_plain(cuda, dtype, shape):
     b, s, h, hd = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -99,7 +102,10 @@ def _prefix_inputs(cuda, shape, dtype, layout):
                                    # 257 keys at hd 128; P 70 past the first key tile, so
                                    # the second tile straddles P; hd 48; hd 20
                                    (2, 250, 7, 2, 128), (2, 230, 70, 2, 64),
-                                   (2, 260, 4, 3, 48), (2, 33, 3, 3, 20)])
+                                   (2, 260, 4, 3, 48), (2, 33, 3, 3, 20),
+                                   # the tile edges: P + S = 64, 65, 128 and 130 keys
+                                   (2, 16, 48, 2, 64), (2, 64, 1, 2, 64), (2, 65, 63, 2, 64),
+                                   (2, 128, 2, 2, 64)])
 def test_prefix_kernels_match_plain(cuda, dtype, shape, layout):
     hd = shape[-1]
     qkv, pk, pv, go = _prefix_inputs(cuda, shape, dtype, layout)
@@ -158,7 +164,7 @@ def _masked_inputs(cuda, shape, dtype, kind):
 @pytest.mark.parametrize("kind", ["causal", "random"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 17, 4, 16), (3, 77, 8, 64), (2, 70, 2, 32),
-                                   *LONG_SHAPES])
+                                   *LONG_SHAPES, *EDGE_SHAPES])
 def test_masked_kernels_match_plain(cuda, dtype, shape, kind):
     qkv, mask, go = _masked_inputs(cuda, shape, dtype, kind)
     h, hd = shape[2], shape[3]
@@ -168,6 +174,25 @@ def test_masked_kernels_match_plain(cuda, dtype, shape, kind):
     torch.cuda.synchronize()
     assert _err(out, MT.masked_attention_plain(qkv, mask, scale, h)) <= TOL[dtype]
     assert _err(dqkv, MT.masked_attention_bwd_plain(qkv, mask, go, scale, h)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("family", ["qkv", "prefix", "masked"])
+def test_backward_is_deterministic(cuda, family):
+    """Two calls on the same inputs give the same bits: no atomics, every
+    sum in a fixed order (bf16, several query and key tiles)."""
+    qkv, mask, go = _masked_inputs(cuda, (3, 150, 4, 64), torch.bfloat16, "random")
+    _, pk, pv, _ = _prefix_inputs(cuda, (3, 150, 10, 4, 64), torch.bfloat16, "image")
+
+    def call():
+        if family == "qkv":
+            return [T.qkv_attention_bwd_cuda(qkv, go, 0.125, 4)]
+        if family == "prefix":
+            return list(PT.prefix_attention_bwd_cuda(qkv, pk, pv, go, 0.125, 4))
+        return [MT.masked_attention_bwd_cuda(qkv, mask, go, 0.125, 4)]
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_masked_wrappers_refuse_a_wrong_mask(cuda):

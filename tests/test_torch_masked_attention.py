@@ -32,7 +32,10 @@ BF16_TOL = 1.6e-2
 SHAPES = [(2, 13, 4, 16), (1, 17, 2, 32), (2, 9, 1, 64), (2, 77, 4, 16)]
 # past 256 keys and the 16/32/64 head dims: S 300 at hd 128, S 260 at hd 48
 LONG_SHAPES = [(1, 300, 2, 128), (1, 260, 1, 48)]
-SHAPES += LONG_SHAPES
+# the edges of the CUDA kernels' tiles at hd 64: a warp's 16 rows and a
+# block's 64 (S 16, 64, 65, 128)
+EDGE_SHAPES = [(1, 16, 1, 64), (1, 64, 1, 64), (1, 65, 1, 64), (1, 128, 1, 64)]
+SHAPES += LONG_SHAPES + EDGE_SHAPES
 MASKS = ["causal", "random"]
 
 

@@ -32,7 +32,10 @@ SHAPES = [(2, 13, 3, 4, 16), (1, 17, 1, 2, 32), (2, 9, 10, 1, 64), (3, 5, 4, 2, 
 # P + S = 257 keys at hd 128, past the port's first kernels' 256; S 260 at
 # hd 48 (no power of two)
 LONG_SHAPES = [(1, 250, 7, 2, 128), (1, 260, 4, 1, 48)]
-SHAPES += LONG_SHAPES
+# the edges of the CUDA kernels' tiles at hd 64: S 16, 64, 65, 128, with
+# P + S = 64, 65, 128 and 130 keys
+EDGE_SHAPES = [(1, 16, 48, 1, 64), (1, 64, 1, 1, 64), (1, 65, 63, 1, 64), (1, 128, 2, 1, 64)]
+SHAPES += LONG_SHAPES + EDGE_SHAPES
 
 
 def _inputs(b, s, p, h, hd, seed=0):
