@@ -11,7 +11,8 @@ which raises on failure:
      and ``conv.cu`` (one ``nvcc`` each, started together), with their ptxas
      reports, and the count of HMMA instructions (tensor-core products) in
      the SASS of each bf16 instantiation of the packed forward and of both
-     backward kernels (none in the f32 ones);
+     backward kernels, of the generic forward (6 modes x 4 head dims) and of
+     the conv weight gradient's partial kernel (none in the f32 ones);
   3. kernel checks, forward and backward, against the plain PyTorch versions:
      the packed-qkv kernels at a small odd shape (f32, bf16) and at the
      slices' shapes (B 16, S 197, 202 and 222, D 768, 12 heads, bf16); the
@@ -25,8 +26,9 @@ which raises on failure:
      ``M_LONG``: S 300 at hd 128, 257 keys, hd 48 and 20) and at the edges of
      the tensor-core kernels' 16- and 64-row tiles (``EDGE``, ``P_EDGE``,
      ``M_EDGE``: S 16, 64, 65 and 128 at hd 64; P + S 64 and 65); each bf16
-     backward twice at its timed shape, whose two results must be equal bit
-     for bit; the 3x3
+     backward twice at its timed shape, and the bf16 conv weight gradient
+     and generic forward (exact and ``fast``) twice at theirs, whose two
+     results must be equal bit for bit; the 3x3
      convolution kernels (y, dx through the forward kernel on the rotated
      taps, and dw) at small odd shapes (f32, bf16, C 3 and 20, a 4 x 4 image)
      and at resnet18's CIFAR stem and four stages at B 128 (bf16);
@@ -70,7 +72,8 @@ which raises on failure:
      ``fused_attention`` forward and backward against the packed and prefix
      kernels' own results; timing of the kernel beside its plain version,
      SDPA (flash and cuDNN backends) and the bound at the ViT-B/16, CLIP
-     text and one long shape, and of each variant at the tool's shape; and
+     text and one long shape, and of each variant at the tool's shape
+     (``mmonly`` beside its function as two cuBLAS products); and
      the port's two tools, ``bench_attention`` and ``exp_flash_kernel``, at
      their defaults, whose launches are the variants' counts.
 
@@ -454,20 +457,29 @@ def phase_build():
 TENSOR_CORE_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
 
 
-def _check_tensor_cores(_build):
-    """The bf16 instantiations of the packed forward and of both backward
-    kernels run HMMA (the tensor cores' mma.sync) in the built library's
-    SASS, and the f32 ones none (CUDA-core FMA: no TF32), as ``cuobjdump
-    -sass`` shows."""
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", _build.library_path("attention")],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+def _hmma_counts(cuobjdump, library, pattern):
+    """{the groups of ``pattern`` matched on a kernel's mangled name: the
+    HMMA instructions in its SASS} for every kernel of ``library``."""
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
     hmma = {}
     for fn in sass.split("Function : ")[1:]:
-        m = re.search(r"lct\d+(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E",
-                      fn.split()[0])
-        if m and m.group(1) in TENSOR_CORE_KERNELS:
+        m = re.search(pattern, fn.split()[0])
+        if m:
             hmma[m.groups()] = len(re.findall(r"\bHMMA\.", fn))
+    return hmma
+
+
+def _check_tensor_cores(_build):
+    """The bf16 instantiations of the packed forward and of both backward
+    kernels, of the generic forward ``gattn_kernel`` (6 modes x 4 head dims)
+    and of ``conv3x3_dw_partial_kernel`` run HMMA (the tensor cores'
+    mma.sync) in the built libraries' SASS, and the f32 ones none (CUDA-core
+    FMA: no TF32), as ``cuobjdump -sass`` shows."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    attn_lib = _build.library_path("attention")
+    hmma = _hmma_counts(cuobjdump, attn_lib,
+                        r"lct\d+(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E")
     for kernel in TENSOR_CORE_KERNELS:
         bf16 = {(int(mode), int(hd)): n for (k, typ, hd, mode), n in sorted(hmma.items())
                 if k == kernel and typ != "f"}
@@ -476,6 +488,23 @@ def _check_tensor_cores(_build):
               f"in the f32 ones: {sorted(set(f32))}")
         _require(len(bf16) == len(f32) == 12 and all(bf16.values()) and not any(f32),
                  f"the bf16 {kernel} does not run on the tensor cores, or an f32 one does")
+    gen = _hmma_counts(cuobjdump, attn_lib, r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E")
+    bf16 = {(_GEN_MODES[int(mode)], int(hd)): n for (typ, hd, mode), n in sorted(gen.items())
+            if typ != "f"}
+    f32 = [n for (typ, _, _), n in gen.items() if typ == "f"]
+    print(f"[build] SASS: HMMA instructions in each bf16 gattn_kernel (mode, hd): {bf16}; "
+          f"in the f32 ones: {sorted(set(f32))}")
+    _require(len(bf16) == len(f32) == 24 and all(bf16.values()) and not any(f32),
+             "the bf16 gattn_kernel does not run on the tensor cores, or an f32 one does")
+    conv = _hmma_counts(cuobjdump, _build.library_path("conv"),
+                        r"(conv3x3_dw_partial_kernel)I(f|13__nv_bfloat16)E")
+    bf16 = [n for (_, typ), n in conv.items() if typ != "f"]
+    f32 = [n for (_, typ), n in conv.items() if typ == "f"]
+    print(f"[build] SASS: HMMA instructions in the bf16 conv3x3_dw_partial_kernel: {bf16}; "
+          f"in the f32 one: {f32}")
+    _require(len(bf16) == len(f32) == 1 and all(bf16) and not any(f32),
+             "the bf16 conv3x3_dw_partial_kernel does not run on the tensor cores, or the f32 "
+             "one does")
 
 
 def _inputs(shape, dtype, dev, seed):
@@ -643,6 +672,29 @@ def phase_bwd_determinism(dev):
         same = [torch.equal(a, b) for a, b in zip(first, second)]
         print(f"[determinism] {name} twice at {shape} bf16: outputs bitwise equal {same}")
         _require(all(same), f"{name}: two calls on the same inputs differ")
+
+
+def phase_fwd_determinism(dev):
+    """The redesigned bf16 kernels twice on the same inputs: the weight
+    gradient at ``C_TIMED`` and the generic forward (``attention_cuda``,
+    the variant ``fast``) at ``G_TIMED[0]``; the results agree bit for bit
+    (no atomics; every sum runs in a fixed order)."""
+    A, C = _attention_modules()[0], _conv_module()
+    x, _, go = _conv_inputs(C_TIMED, torch.bfloat16, dev, seed=14)
+    shape = tuple(G_TIMED[0][1:])
+    q, k, v = _generic_inputs(shape, torch.bfloat16, dev, seed=15, strided=False)
+    scale = shape[-1] ** -0.5
+    calls = {
+        ("conv3x3_dw", C_TIMED): lambda: C.conv3x3_dw_cuda(x, go),
+        ("attn_fwd", shape): lambda: A.attention_cuda(q, k, v, scale),
+        ("attn_fwd_fast", shape): lambda: A.attention_variant_cuda(q, k, v, scale, "fast"),
+    }
+    for (name, shp), call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        print(f"[determinism] {name} twice at {shp} bf16: outputs bitwise equal {same}")
+        _require(same, f"{name}: two calls on the same inputs differ")
 
 
 def _conv_inputs(shape, dtype, dev, seed):
@@ -1634,9 +1686,15 @@ def _generic_bound(b, h, sq, skv, hd):
     return _bound(2 * b * h * hd * (2 * sq + 2 * skv), 4 * b * h * sq * skv * hd)
 
 
-def _time_generic(label, shape, kernel, plain, card, library=True):
-    """The kernel beside its plain version and (``library``) SDPA on the
-    flash and cuDNN backends, bf16, contiguous inputs; returns (best times,
+#: mmonly's yardstick: its function as two cuBLAS products in bf16 (the
+#: scores rounded to bf16 from f32 sums, then times v); no one call computes it
+MMONLY_YARDSTICK = "cublas (q @ k^T) @ v"
+
+
+def _time_generic(label, shape, kernel, plain, card, library=True, others=None):
+    """The kernel beside its plain version, (``library``) SDPA on the flash
+    and cuDNN backends and ``others`` ({name: fn(q, k, v)}, yardsticks other
+    than a library call), bf16, contiguous inputs; returns (best times,
     bound). The library time is the faster backend's."""
     b, h, sq, skv, hd = shape
     q, k, v = _generic_inputs(shape, torch.bfloat16, dev=torch.device("cuda", 0), seed=9,
@@ -1645,10 +1703,11 @@ def _time_generic(label, shape, kernel, plain, card, library=True):
     sdpa = _sdpa_runs(q, k, v, None, scale, _flash_and_cudnn()) if library else {}
     best = _time_pair(f"{label} at B {b} H {h} Sq {sq} Skv {skv} hd {hd} bf16", {
         "plain": lambda: plain(q, k, v, scale), **{n: f for n, (f, _) in sdpa.items()},
+        **{n: (lambda fn=fn: fn(q, k, v)) for n, fn in (others or {}).items()},
         "kernel": lambda: kernel(q, k, v, scale)}, card)
     _set_library(best, list(sdpa))
     bound = _generic_bound(*shape)
-    ratios = ", ".join(f"{best['kernel'] / best[n]:.1f}x {n}" for n in sdpa)
+    ratios = ", ".join(f"{best['kernel'] / best[n]:.1f}x {n}" for n in [*sdpa, *(others or {})])
     print(f"[bound] {label}: {bound[0] * 1e3:.1f} us ({bound[1]}); kernel "
           f"{best['kernel'] / bound[0]:.1f}x the bound, {ratios or 'no SDPA call'}")
     return best, bound
@@ -1672,9 +1731,12 @@ def phase_generic_timing(dev, card):
             q, k, v, scale, variant)
         plain = lambda q, k, v, scale, variant=variant: A.attention_variant_plain(  # noqa: E731
             q, k, v, scale, variant)
-        # mmonly computes no softmax: no library call computes its function
+        # mmonly computes no softmax: no library call computes its function,
+        # two cuBLAS calls do
+        mm = variant == "mmonly"
+        two_calls = {MMONLY_YARDSTICK: lambda q, k, v: (q @ k.transpose(-1, -2)) @ v}
         out[key] = _time_generic(f"{key} ({variant})", shape, kernel, plain, card,
-                                 library=variant != "mmonly")
+                                 library=not mm, others=two_calls if mm else None)
     return out
 
 
@@ -1923,6 +1985,7 @@ def main() -> int:
     phase_prefix_checks(dev, errs, checked)
     phase_masked_checks(dev, errs, checked)
     phase_bwd_determinism(dev)
+    phase_fwd_determinism(dev)
     phase_conv_checks(dev, errs, checked)
     t_gen = time.perf_counter()
     phase_generic_checks(dev, errs, checked)
@@ -1995,6 +2058,8 @@ def main() -> int:
         }
         if kname.endswith("qkv_bwd"):
             entry["dq_ms"], entry["dkdv_ms"] = best["dq"], best["dkdv"]
+        if kname == "attn_fwd_mmonly":
+            entry["yardstick"], entry["yardstick_ms"] = MMONLY_YARDSTICK, best[MMONLY_YARDSTICK]
         if kname.startswith("conv"):
             b, h, w, c, o = C_TIMED
             entry["library"] = "cuDNN"

@@ -225,13 +225,14 @@ struct MmaTile {
 };
 
 // Stage rows row0 ... row0+63 of one head into `dst`: row j < P from `pre`
-// (row stride D), row P <= j < N from `seq` (row stride seq_ld, row j - P);
+// (row stride D), row P <= j < N from `seq` (row stride seq_ld elements, row
+// j - P; the generic forward passes any tensor's S stride);
 // rows at or past N and columns at or past hd are zero. `vec`: hd and every
 // row start are whole 16-byte chunks, so cp.async copies them (asynchronous,
 // committed by the caller); otherwise plain element copies.
 template <typename T, int HDP, bool PREFIX>
 __device__ __forceinline__ void stage_rows(T* dst, const T* pre, const T* seq, int row0, int P,
-                                           int N, int D, int seq_ld, int hd, bool vec) {
+                                           int N, int D, int64_t seq_ld, int hd, bool vec) {
   using Tile = MmaTile<T, HDP>;
   if (vec) {
     constexpr int kPerRow = HDP / Tile::kChunk;

@@ -22,35 +22,76 @@
 // 64 -> 64 at 32 x 32 ... 512 -> 512 at 4 x 4) is 9.66 GFLOP on 16.8 MB of
 // bf16 activations, about 576 FLOP per byte, so the least time is set by the
 // tensor cores (about 9.8 us at 989 TFLOP/s), not by the 5-10 us of bytes.
-// This first version does its products on the CUDA cores in f32 FMA (67
-// TFLOP/s at most), fed from shared memory, so it is bound by those FMAs and
-// the shared-memory reads that feed them. What the design does about it:
-//   * forward: a block owns 64 output pixels (a tile of rows of one image, or
-//     several whole small images) by 64 output channels. For each chunk of 16
-//     input channels it stages the input rows the tile needs, with the
-//     1-pixel zero halo, in shared memory (f32) once, and the chunk's taps of
-//     all 9 positions; the 9 tap-shifted products then read the same staged
-//     rows, so an input element is read from device memory once per chunk and
-//     not 9 times. Each thread keeps a 4 pixel x 4 channel tile of f32 sums in
-//     registers (5 shared-memory reads for 16 FMAs).
-//   * weight gradient: dw[tap] = x_tap^T . g is a reduction over M. A block
-//     owns a 64 x 64 (c, o) tile of one tap over a fixed slice of M and writes
-//     f32 partial sums; a second kernel adds the slices in a fixed order. No
-//     atomics: the result does not depend on the schedule.
-// wgmma on bf16 tiles fed by TMA is the next step for speed.
+//   * forward (both dtypes): f32 FMA on the CUDA cores (67 TFLOP/s at most),
+//     fed from shared memory, so bound by those FMAs and the shared-memory
+//     reads that feed them. A block owns 64 output pixels (a tile of rows of
+//     one image, or several whole small images) by 64 output channels. For
+//     each chunk of 16 input channels it stages the input rows the tile
+//     needs, with the 1-pixel zero halo, in shared memory (f32) once, and the
+//     chunk's taps of all 9 positions; the 9 tap-shifted products then read
+//     the same staged rows, so an input element is read from device memory
+//     once per chunk and not 9 times. Each thread keeps a 4 pixel x 4
+//     channel tile of f32 sums in registers (5 shared-memory reads for 16
+//     FMAs).
+//   * weight gradient: dw[tap] = x_tap^T . g is a reduction over the M =
+//     B*H*W pixels, split into S slices of M: a partial kernel writes one
+//     f32 sum per slice, and conv3x3_dw_reduce_kernel adds the slices in a
+//     fixed order. No atomics: two calls give the same bits.
+//     bf16: each tap is a GEMM with the channels c as rows, o as columns and
+//     the pixels as its depth, on the tensor cores (mma.sync m16n8k16, bf16
+//     in, f32 accumulators). A block of 4 warps owns a 64 x 64 (c, o) tile,
+//     one row of taps (dh: its 3 taps dw), over one slice; each warp keeps
+//     32 x 32 f32 sums of each of the 3 taps (96 registers). Per step of
+//     128 pixels the block stages, with 16-byte cp.async copies
+//     double-buffered into bf16 tiles (rows padded by 16 bytes, so ldmatrix
+//     hits every bank once): the 128 g rows, and the 130 x rows that the 3
+//     taps read, which are one contiguous run of pixels
+//     (pixel m + (dh - 1) * W + dw - 1 for dw = 0, 1, 2). The A-fragments
+//     (x_tap^T) of all 3 taps come from that one window by ldmatrix.trans,
+//     each lane at its own pixel's row shifted by dw; the B-fragments (g) by
+//     ldmatrix.trans once for the 3 taps. A tap that falls outside the image
+//     (the 1-pixel halo, or a neighbouring image's row when a step spans
+//     several images) points its lane at a zero row instead: a per-pixel mask
+//     of the valid taps, written once per step, stands in for the halo, and
+//     the inner loop has no divide. So x is read from device memory 3 times
+//     (once per dh), not 9, and a warp's 16 pixels are 8 ldmatrix for 24
+//     mma, with no branch between them (a warp multiplies the zero channels
+//     of a tile past C or O too: a branch per tile cost more than the
+//     products it saved). Channels past C or O are zero in shared memory
+//     only; pixels past the slice are zero in g and masked in x. Slices are
+//     sized for about two blocks an SM. Rows that are not whole 16-byte
+//     chunks (C or O not a multiple of 8) are staged element by element.
+//     f32 (the checks hold it to 1e-5, so no TF32): the FMA body, a block
+//     owning one tap's 64 x 64 (c, o) tile as a 16 x 16 thread grid, on the
+//     same slices.
+// The forward on the tensor cores is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_kernels.cuh"  // cp.async, ldmatrix and mma.sync primitives
+
 namespace lctconv {
 
-constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 tile of sums
+using lct::kIsF32;
+
+constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 tile of sums (FMA kernels)
 constexpr int kBM = 64;        // output pixels per forward block
-constexpr int kBN = 64;        // output channels per block
-constexpr int kCK = 16;        // input channels per staged chunk
-constexpr int kPK = 16;        // pixels per weight-gradient step
-constexpr int kTargetBlocks = 4 * 132;  // about four blocks an SM
+constexpr int kBN = 64;        // output channels (forward), c and o (weight gradient) per block
+constexpr int kCK = 16;        // input channels per staged chunk (forward)
+constexpr int kPK = 16;        // pixels per step of the f32 weight gradient (f32 only)
+// the bf16 weight gradient on the tensor cores
+constexpr int kMmaThreads = 128;         // 4 warps, 2 x 2 over the 64 x 64 (c, o) tile
+constexpr int kKC = 128;                 // pixels per staged step
+constexpr int kLd = kBN + 8;             // bf16 row of a staged tile: 64 channels + 16 bytes
+constexpr int kRowChunks = kBN / 8;      // 16-byte chunks of a staged row
+constexpr int kXRows = kKC + 3;          // x window: kKC + 2 pixel rows and the zero row
+constexpr int kZeroRow = kKC + 2;
+constexpr int kTargetBlocks = 2 * 132;   // bf16 partial blocks: about two an SM
+constexpr int kMinSlice = 4 * kKC;       // the shortest slice of M, in pixels
+constexpr size_t kDwSmem =
+    sizeof(__nv_bfloat16) * 2 * (kXRows + kKC) * kLd + 2 * kKC;  // 2 buffers + the masks
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -177,22 +218,23 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
   }
 }
 
-// The weight-gradient split: S slices of M, each slice_len pixels (a multiple
-// of kPK), so that the tiles times the slices give about kTargetBlocks blocks
-// and no slice is shorter than 512 pixels.
+// The weight-gradient split, for both dtypes: S slices of M, each slice_len
+// pixels (a multiple of kKC, so of kPK too), so that the bf16 kernel's
+// blocks (3 rows of taps x the (c, o) tiles x S) number about kTargetBlocks
+// and no slice is shorter than kMinSlice pixels.
 struct Slices {
   int S, len;
 };
 
 inline Slices dw_slices(int B, int H, int W, int C, int O) {
   const long long M = (long long)B * H * W;
-  const long long tiles = 9LL * ((C + kBN - 1) / kBN) * ((O + kBN - 1) / kBN);
+  const long long tiles = 3LL * ((C + kBN - 1) / kBN) * ((O + kBN - 1) / kBN);
   long long s = (kTargetBlocks + tiles - 1) / tiles;
-  const long long most = (M + 511) / 512;
+  const long long most = (M + kMinSlice - 1) / kMinSlice;
   if (s > most) s = most;
   if (s < 1) s = 1;
   long long len = (M + s - 1) / s;
-  len = (len + kPK - 1) / kPK * kPK;
+  len = (len + kKC - 1) / kKC * kKC;
   Slices out;
   out.len = (int)len;
   out.S = (int)((M + len - 1) / len);
@@ -200,12 +242,12 @@ inline Slices dw_slices(int B, int H, int W, int C, int O) {
 }
 
 // partial[s, tap, c, o] = sum over the pixels m of slice s of
-// x[m shifted by tap, c] * g[m, o]; a block owns one tap's 64 x 64 (c, o) tile.
+// x[m shifted by tap, c] * g[m, o]. f32: a block of kThreads owns one tap's
+// 64 x 64 (c, o) tile.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                          float* __restrict__ partial, int B, int H, int W, int C, int O,
-                          int slice_len) {
+__device__ __forceinline__ void dw_partial_fma(const T* __restrict__ x, const T* __restrict__ g,
+                                               float* __restrict__ partial, int B, int H, int W,
+                                               int C, int O, int slice_len) {
   __shared__ __align__(16) float xs[kPK][kBN];
   __shared__ __align__(16) float gs[kPK][kBN];
   const int o0 = blockIdx.x * kBN, c0 = blockIdx.y * kBN;
@@ -268,6 +310,173 @@ conv3x3_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// bf16: a block of kMmaThreads owns a 64 x 64 (c, o) tile of the 3 taps of
+// one row dh; warp w owns channels c0 + 32 (w / 2) ... + 31 and outputs
+// o0 + 32 (w % 2) ... + 31. Step i stages pixels m0 = m_lo + kKC i ...: the
+// x window (row r is pixel m0 + (dh - 1) W - 1 + r, r < kKC + 2; row kZeroRow
+// stays zero) and the g rows, in flight while step i is computed, and each
+// pixel's mask (bit dw: tap dw reads inside the image), written after step
+// i's products.
+__device__ __forceinline__ void dw_partial_mma(unsigned char* smem,
+                                               const __nv_bfloat16* __restrict__ x,
+                                               const __nv_bfloat16* __restrict__ g,
+                                               float* __restrict__ partial, int B, int H, int W,
+                                               int C, int O, int slice_len, bool vec_x,
+                                               bool vec_g) {
+  using T = __nv_bfloat16;
+  T* Xs = reinterpret_cast<T*>(smem);                     // 2 x kXRows x kLd
+  T* Gs = Xs + 2 * kXRows * kLd;                          // 2 x kKC x kLd
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Gs + 2 * kKC * kLd);  // 2 x kKC
+  const int o0 = blockIdx.x * kBN, c0 = blockIdx.y * kBN;
+  const int dh = blockIdx.z % 3, s = blockIdx.z / 3;
+  const long long M = (long long)B * H * W;
+  const long long m_lo = (long long)s * slice_len;
+  const long long m_hi = m_lo + slice_len < M ? m_lo + slice_len : M;
+  const int steps = (int)((m_hi - m_lo + kKC - 1) / kKC);
+  const int nc = C - c0 < kBN ? C - c0 : kBN, no = O - o0 < kBN ? O - o0 : kBN;
+  const long long shift = (long long)(dh - 1) * W - 1;  // x window row 0 is pixel m0 + shift
+  const int tid = threadIdx.x;
+
+  // zero both buffers once: the zero row, and the columns past nc and no
+  // that the element-wise staging never writes
+  for (int e = tid; e < (int)(2 * (kXRows + kKC) * kLd * sizeof(T) / 16); e += kMmaThreads)
+    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  auto prefetch = [&](int i) {
+    const long long m0 = m_lo + (long long)i * kKC;
+    T* xd = Xs + (i % 2) * kXRows * kLd;
+    T* gd = Gs + (i % 2) * kKC * kLd;
+    if (vec_x) {  // every 16-byte chunk of a row; those past C zero-filled
+      for (int e = tid; e < (kKC + 2) * kRowChunks; e += kMmaThreads) {
+        const int r = e / kRowChunks, c = (e % kRowChunks) * 8;
+        const long long f = m0 + shift + r;
+        const bool ok = f >= 0 && f < M && c < nc;
+        lct::cp_async16(xd + r * kLd + c, ok ? x + f * C + c0 + c : x, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < (kKC + 2) * nc; e += kMmaThreads) {
+        const int r = e / nc, c = e % nc;
+        const long long f = m0 + shift + r;
+        xd[r * kLd + c] = f >= 0 && f < M ? x[f * C + c0 + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+    if (vec_g) {
+      for (int e = tid; e < kKC * kRowChunks; e += kMmaThreads) {
+        const int r = e / kRowChunks, c = (e % kRowChunks) * 8;
+        const bool ok = m0 + r < m_hi && c < no;
+        lct::cp_async16(gd + r * kLd + c, ok ? g + (m0 + r) * O + o0 + c : g, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kKC * no; e += kMmaThreads) {
+        const int r = e / no, c = e % no;
+        gd[r * kLd + c] = m0 + r < m_hi ? g[(m0 + r) * O + o0 + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+  // each pixel's mask of step i, in 32-bit arithmetic from the slice's first
+  // pixel (w_lo, h_lo): bit dw set where tap dw reads inside the image
+  const long long row_lo = m_lo / W;
+  const int w_lo = (int)(m_lo - row_lo * W), h_lo = (int)(row_lo % H);
+  auto write_masks = [&](int i) {
+    for (int p = tid; p < kKC; p += kMmaThreads) {
+      const int off = i * kKC + p;  // < slice_len
+      int mask = 0;
+      if (m_lo + off < m_hi) {
+        const int q = w_lo + off, rows = q / W, w = q - rows * W;
+        const int h = (h_lo + rows) % H + dh - 1;
+        if (h >= 0 && h < H) mask = (w > 0 ? 1 : 0) | 2 | (w + 1 < W ? 4 : 0);
+      }
+      Ms[(i % 2) * kKC + p] = (uint8_t)mask;
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32, wc = warp / 2, wo = warp % 2;
+  float acc[3][2][4][4];
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][mt][nt][e] = 0.f;
+
+  prefetch(0);
+  write_masks(0);
+  lct::cp_async_commit();
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) prefetch(i + 1);
+    lct::cp_async_commit();
+    lct::cp_async_wait<1>();
+    __syncthreads();  // step i visible to every warp
+    const T* xb = Xs + (i % 2) * kXRows * kLd;
+    const T* gb = Gs + (i % 2) * kKC * kLd;
+    const uint8_t* mb = Ms + (i % 2) * kKC;
+#pragma unroll
+    for (int ks = 0; ks < kKC / 16; ++ks) {
+      // B (g, pixels x o) through ldmatrix.trans: bf[np] holds the k halves
+      // of output tiles 2 np and 2 np + 1
+      uint32_t bf[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        lct::ldmatrix_x4_trans(
+            bf[np], gb + (ks * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kLd + wo * 32 + np * 16 +
+                        (lane / 16) * 8);
+      // A (x_tap^T, c x pixels): this lane addresses pixel p's row, shifted
+      // by the tap, or the zero row
+      const int p = ks * 16 + (lane % 8) + (lane / 16) * 8;
+      const int mask = mb[p];
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const T* row = xb + ((mask >> t) & 1 ? p + t : kZeroRow) * kLd + wc * 32 +
+                       ((lane / 8) % 2) * 8;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          uint32_t a[4];
+          lct::ldmatrix_x4_trans(a, row + mt * 16);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            lct::mma_bf16(acc[t][mt][nt], a, bf[nt / 2][(nt % 2) * 2],
+                          bf[nt / 2][(nt % 2) * 2 + 1]);
+        }
+      }
+    }
+    // step i + 1's masks, while other warps still multiply
+    if (i + 1 < steps) write_masks(i + 1);
+    __syncthreads();  // step i + 1's masks written, buffers i % 2 read in full
+  }
+
+  const int gq = lane / 4, tq = lane % 4;
+  float* out = partial + ((long long)s * 9 + dh * 3) * C * O;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + wc * 32 + mt * 16 + gq + (e / 2) * 8;
+          const int o = o0 + wo * 32 + nt * 8 + 2 * tq + (e % 2);
+          if (c < C && o < O) out[((long long)t * C + c) * O + o] = acc[t][mt][nt][e];
+        }
+}
+
+// The partial sums of slice blockIdx.z / taps (f32: 9 taps, bf16: 3 rows of
+// taps): the f32 FMA body or the bf16 tensor-core body.
+template <typename T>
+__global__ void __launch_bounds__(kIsF32<T> ? kThreads : kMmaThreads, kIsF32<T> ? 1 : 3)
+conv3x3_dw_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                          float* __restrict__ partial, int B, int H, int W, int C, int O,
+                          int slice_len, bool vec_x, bool vec_g) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  if constexpr (kIsF32<T>)
+    dw_partial_fma<T>(x, g, partial, B, H, W, C, O, slice_len);
+  else
+    dw_partial_mma(dw_smem, x, g, partial, B, H, W, C, O, slice_len, vec_x, vec_g);
+}
+
 // dw[i] = partial[0, i] + partial[1, i] + ... in slice order.
 __global__ void conv3x3_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
                                          long long n, int S) {
@@ -296,10 +505,19 @@ template <typename T>
 cudaError_t dw(const void* x, const void* g, float* partial, float* out, int B, int H, int W,
                int C, int O, cudaStream_t stream) {
   const Slices sl = dw_slices(B, H, W, C, O);
-  dim3 grid((O + kBN - 1) / kBN, (C + kBN - 1) / kBN, 9 * sl.S);
-  conv3x3_dw_partial_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), partial, B, H, W, C, O, sl.len);
-  cudaError_t err = cudaGetLastError();
+  const int per_slice = kIsF32<T> ? 9 : 3;  // f32: one block per tap; bf16: per row of taps
+  const size_t smem = kIsF32<T> ? 0 : kDwSmem;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_dw_partial_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((O + kBN - 1) / kBN, (C + kBN - 1) / kBN, per_slice * sl.S);
+  // 16-byte cp.async copies of whole rows: aligned pointers, rows of whole chunks
+  const bool vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 && C % 8 == 0;
+  const bool vec_g = reinterpret_cast<uintptr_t>(g) % 16 == 0 && O % 8 == 0;
+  conv3x3_dw_partial_kernel<T><<<grid, kIsF32<T> ? kThreads : kMmaThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), partial, B, H, W, C, O, sl.len, vec_x,
+      vec_g);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n = 9LL * C * O;
   conv3x3_dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, n, sl.S);

@@ -20,29 +20,63 @@
 // padded to HDP in {16, 32, 64, 128} with zero columns in shared memory only.
 // The output is contiguous (B, H, Sq, hd), in the input type.
 //
-// Design. One block of 256 threads per (64-query tile, head, image). The
-// block walks the keys in 64-row tiles of K and V staged in shared memory
-// (f32), so shared memory does not grow with Skv and keys past Skv are
-// skipped, never padded in device memory. Each thread owns rows ty + 16 r
-// (r < 4) of the tile and, in the score product, key columns tx + 16 c
-// (c < 4), in the output product head columns tx + 16 c (c < HDP / 16): a
-// row's statistics live in the 16 lanes that share ty, reduced with shuffles
-// in a fixed order.
+// What bounds it on an H100: at ViT-B/16 shapes (B 128, H 12, S 197-222,
+// hd 64, bf16) the work is about 300 FLOP per byte of q, k, v and o, at the
+// bf16 tensor-core ridge, so the least time is about 46-52 us, set by the
+// bytes. At B 8, Sq = Skv = 1024, hd 128 the work is operation-bound.
+//
+// Design of the bf16 instantiations, that of the packed forward
+// (attn_fwd_kernel in attention_kernels.cuh), whose primitives it uses: both
+// products on the tensor cores as mma.sync m16n8k16 (bf16 in, f32
+// accumulators). One block of 4 warps per (64-query tile, head, image),
+// each warp owning 16 query rows (a thread's: rows g and g + 8 of the
+// warp's, g = lane / 4). The Q tile is staged once
+// and held as A-fragments (at hd 128 read from shared memory at each use:
+// holding them would spill). K and V stream in 64-key bf16 tiles by
+// 16-byte cp.async copies, double-buffered, each read through its own B, H
+// and S strides (stage_rows; rows that are not whole 16-byte chunks, or not
+// 16-byte aligned, element by element), so shared memory does not grow with
+// Skv; rows past Sq or Skv and columns past hd are zero in shared memory
+// only. The scores S = Q . K^T land in the accumulator registers (a row's
+// 64 scores in the 4 lanes of a quad, reduced with shuffles in a fixed
+// order); P goes from there straight into A-fragments, rounded to bf16 as
+// it is packed, and O += P . V takes V through ldmatrix.trans. Keys past
+// Skv get P = 0 by a select; query rows past Sq are not stored.
+//   The variants (kV2, kV2NoMax, kFast, kFastBf16) round the normalised P
+//     before P . v, so they need each row's sum (kV2: and max) before the
+//     first product: pass 1 over the key tiles forms the scores and the row
+//     statistics (kV2's sum rescaled online as the max grows), pass 2 forms
+//     the scores again, the mode's rounded P in the score registers, and
+//     O += P . V. kV2 and kV2NoMax form the quotient exp(.) / l as
+//     softmax_prob (the product with the correctly rounded 1 / l, corrected
+//     by one fma: the division's value almost always, with no divide per
+//     score); kFast* keep their product with 1 / l, which is their function.
+//   kMMOnly is one pass: round(q . k^T) goes straight into the A-fragments.
 //   kExact is one pass with an online softmax: a running max m, a running
-//     sum l and an f32 output accumulator rescaled by exp(m_old - m_new);
-//     the output is acc / l, rounded once. P is never rounded, so this is
-//     the TPU body's function up to the order of the f32 sums, at any Skv.
-//   The variants round the normalized P to the input type before P . v, so
-//     they need each row's max and sum before the first product: a first
-//     pass over the key tiles computes them (the sum rescaled online as the
-//     max grows), and the second pass recomputes the scores, forms the
-//     rounded P and accumulates P . v. kMMOnly is one pass.
+//     sum l and the f32 output accumulator rescaled by exp(m_old - m_new);
+//     the output is o / l, rounded once. P stays in f32, and its product
+//     with V is split: hi = bf16(P), lo = bf16(P - hi), o += hi . V + lo . V
+//     (two passes of mma over the same V tile; V is exact in bf16). That leaves
+//     |P - hi - lo| <= 2^-18 P, far below the output's one bf16 rounding:
+//     the one departure from the TPU body's f32 P . v, which is otherwise
+//     the same function up to the order of the f32 sums, at any Skv.
+// Registers are capped at 128 (hd <= 64) so that 4 blocks share an SM;
+// shared memory is 5 tiles (Q, 2 K, 2 V) of 64 x (HDP + 8) bf16, 46 KB at
+// hd 64, whatever Skv.
+//
+// The f32 instantiations (the checks hold them to 1e-5, so no TF32) are the
+// first version's body, in f32 FMA on the CUDA
+// cores: 256 threads on a 16 x 16 grid, each owning rows ty + 16 r (r < 4)
+// of the tile and, in the score product, key columns tx + 16 c (c < 4), in
+// the output product head columns tx + 16 c (c < HDP / 16); K and V in f32
+// shared tiles (kThreads, LD = HDP + 1, the Ps tile of P: f32 only).
 //
 // Rounding points (those of the TPU bodies; the plain PyTorch versions in
 // ops/attention.py repeat them):
 //   scores  s = (q . k^T in f32) * scale (kFast*: * scale * log2(e), the
 //           wrapper's one f32 multiplier); __fmul_rn so no fma fuses it;
-//   kExact  p = exp(s - m) in f32, o = round((sum p v) / l);
+//   kExact  p = exp(s - m) in f32, o = round((sum p v) / l) (bf16: p v as
+//           hi v + lo v, above);
 //   kV2     p = round(exp(s - m) / l);  kV2NoMax  p = round(exp(s) / l);
 //   kFast   p = round(exp2(s) * (1 / l));
 //   kFastBf16  e = bf16(exp2(bf16(s))), l = sum e in f32, p = round(e * (1 / l));
@@ -50,16 +84,6 @@
 //   then o = round(sum p v), every sum in f32. round() is the cast to the
 //   input type. pl.reciprocal(approx=True) of the fast bodies is the exact
 //   reciprocal here (__frcp_rn), as in the plain versions.
-//
-// What bounds it on an H100: at ViT-B/16 shapes (B 128, H 12, S 197-222,
-// hd 64, bf16) the work is about 300 FLOP per byte of q, k, v and o, at the
-// bf16 tensor-core ridge, so the least time is about 46-52 us, set by the
-// bytes. This first version does both products in f32 FMA on the CUDA cores
-// from shared memory (2 FMAs per shared load in the score product), so the
-// FMAs bound it, far from either roofline; the 64-row tiles also waste
-// (256 / 197)^2 of the work at S 197. At B 8, Sq = Skv = 1024, hd 128 the
-// work is operation-bound even on the tensor cores. wgmma on bf16 tiles fed
-// by TMA is the next step for speed.
 //
 // Determinism: every sum runs in a fixed order; no atomics.
 
@@ -69,11 +93,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_kernels.cuh"
+
 namespace lct {
 namespace gattn {
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kTile = 64;      // query rows and key rows per tile
+constexpr int kThreads = 256;  // f32 only: a 16 x 16 thread grid
+constexpr int kTile = 64;      // query rows and key rows per tile (kMmaRows, kKT in bf16)
 constexpr int kMaxHeadDim = 128;
 
 enum Mode : int { kExact = 0, kV2 = 1, kV2NoMax = 2, kFast = 3, kFastBf16 = 4, kMMOnly = 5 };
@@ -166,17 +192,19 @@ __device__ __forceinline__ float weight(float s, float m) {
   return round_to<__nv_bfloat16>(exp2f(round_to<__nv_bfloat16>(s)));
 }
 
+// f32: one block of kThreads per (64-query tile, head, image), FMA on the
+// CUDA cores.
 template <typename T, int HDP, int MODE>
-__global__ void __launch_bounds__(kThreads)
-gattn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int H, int Sq, int Skv, int hd, int64_t qsb, int64_t qsh,
-             int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
-             int64_t vss, float mult) {
+__device__ __forceinline__ void gattn_fma(float* smem, const T* __restrict__ q,
+                                          const T* __restrict__ k, const T* __restrict__ v,
+                                          T* __restrict__ out, int H, int Sq, int Skv, int hd,
+                                          int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
+                                          int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
+                                          int64_t vss, float mult) {
   constexpr int LD = HDP + 1;    // odd stride: rows tx and tx + 1 in other banks
   constexpr int LDP = kTile + 1;
   constexpr int TN = HDP / 16;   // output columns a thread owns
   constexpr bool TWO_PASS = MODE != kExact && MODE != kMMOnly;
-  extern __shared__ float smem[];
   float* Qs = smem;              // kTile x LD
   float* Ks = Qs + kTile * LD;   // kTile x LD
   float* Vs = Ks + kTile * LD;   // kTile x LD
@@ -308,10 +336,201 @@ gattn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
+// bf16: one block of 4 warps per (64-query tile, head, image), each warp
+// owning 16 query rows. Two-pass modes: stage i < tiles brings K of key tile
+// i (pass 1), stage tiles + i brings K and V of key tile i (pass 2);
+// kExact and kMMOnly: stage i brings K and V of key tile i. Stage i + 1 is
+// in flight while stage i is computed.
+template <int HDP, int MODE>
+__device__ __forceinline__ void gattn_mma(unsigned char* smem, const __nv_bfloat16* __restrict__ q,
+                                          const __nv_bfloat16* __restrict__ k,
+                                          const __nv_bfloat16* __restrict__ v,
+                                          __nv_bfloat16* __restrict__ out, int H, int Sq, int Skv,
+                                          int hd, int64_t qsb, int64_t qsh, int64_t qss,
+                                          int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
+                                          int64_t vsh, int64_t vss, float mult, bool vec) {
+  using T = __nv_bfloat16;
+  constexpr bool TWO_PASS = MODE != kExact && MODE != kMMOnly, HOLD = HDP <= 64;
+  constexpr int LD = MmaTile<T, HDP>::kLd, TILE = MmaTile<T, HDP>::kElems, NT = kKT / 8;
+  const int tiles = (Skv + kKT - 1) / kKT, stages = TWO_PASS ? 2 * tiles : tiles;
+  T* Qs = reinterpret_cast<T*>(smem);  // kMmaRows x LD
+  T* Ks = Qs + TILE;                   // 2 buffers
+  T* Vs = Ks + 2 * TILE;               // 2 buffers
+  const int q0 = blockIdx.x * kMmaRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const T* qb = q + (int64_t)b * qsb + (int64_t)h * qsh;
+  const T* kb = k + (int64_t)b * ksb + (int64_t)h * ksh;
+  const T* vb = v + (int64_t)b * vsb + (int64_t)h * vsh;
+
+  auto prefetch = [&](int i) {
+    const bool with_v = !TWO_PASS || i >= tiles;
+    const int row0 = (TWO_PASS && i >= tiles ? i - tiles : i) * kKT, buf = i % 2;
+    stage_rows<T, HDP, false>(Ks + buf * TILE, nullptr, kb, row0, 0, Skv, 0, kss, hd, vec);
+    if (with_v)
+      stage_rows<T, HDP, false>(Vs + buf * TILE, nullptr, vb, row0, 0, Skv, 0, vss, hd, vec);
+  };
+  stage_rows<T, HDP, false>(Qs, nullptr, qb, q0, 0, Sq, 0, qss, hd, vec);
+  prefetch(0);
+  cp_async_commit();
+
+  RowFrags<HDP, HOLD> qf;
+  // rows g and g + 8 of the warp's: max (kV2, kExact), sum, 1 / sum
+  float m[2], l[2] = {0.f, 0.f}, inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) m[r] = MODE == kV2 || MODE == kExact ? -INFINITY : 0.f;
+  float o[HDP / 8][4];
+#pragma unroll
+  for (int d = 0; d < HDP / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+
+  for (int i = 0; i < stages; ++i) {
+    if (i + 1 < stages) prefetch(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // stage i (and at i == 0 the Q tile) visible to every warp
+    if (i == 0) qf.load(Qs + warp * 16 * LD);
+    const bool pass1 = TWO_PASS && i < tiles;
+    const int k0 = (TWO_PASS && !pass1 ? i - tiles : i) * kKT, buf = i % 2;
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    mma_abt(s, qf, Ks + buf * TILE);  // q . k^T
+    // the mode's score; -inf past Skv, which every weight maps to 0
+    const bool edge = k0 + kKT > Skv;  // the last tile holds keys past Skv
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = MODE == kMMOnly ? round_to<T>(s[j][e]) : __fmul_rn(s[j][e], mult);
+        s[j][e] = edge && k0 + j * 8 + 2 * t + (e % 2) >= Skv ? -INFINITY : x;
+      }
+    if (pass1) {  // the row sum (kV2: and max) of the mode's weights
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float m_new = m[r];
+        if (MODE == kV2) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          m_new = fmaxf(m[r], mx);  // finite: key 0 is in tile 0
+        }
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          sum += weight<MODE>(s[j][2 * r], m_new) + weight<MODE>(s[j][2 * r + 1], m_new);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        // kV2: expf(-inf) = 0 on the first tile
+        l[r] = MODE == kV2 ? fmaf(l[r], expf(m[r] - m_new), sum) : l[r] + sum;
+        m[r] = m_new;
+      }
+    } else if (MODE == kExact) {
+      // online softmax: P = exp(s - m_new) in f32, l and o rescaled
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);     // finite: key 0 is in tile 0
+        const float alpha = expf(m[r] - m_new);  // 0 on the first tile
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = expf(s[j][2 * r + c] - m_new);  // 0 past Skv
+            s[j][2 * r + c] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[r] = fmaf(l[r], alpha, sum);
+        m[r] = m_new;
+#pragma unroll
+        for (int d = 0; d < HDP / 8; ++d) {
+          o[d][2 * r] *= alpha;
+          o[d][2 * r + 1] *= alpha;
+        }
+      }
+      const T* Vb = Vs + buf * TILE;
+      mma_xb<NT, HDP>(o, s, Vb);  // o += hi . V: mma_xb packs bf16(P)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] -= round_to<T>(s[j][e]);  // P - hi, exact
+      mma_xb<NT, HDP>(o, s, Vb);  // o += lo . V
+    } else {
+      // the mode's P in the score registers; mma_xb rounds it to bf16
+      if (TWO_PASS && i == tiles)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) inv[r] = __frcp_rn(l[r]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2;
+          float p = s[j][e];  // kMMOnly: the rounded score itself
+          if (MODE == kV2 || MODE == kV2NoMax)
+            p = softmax_prob(s[j][e], m[r], l[r], inv[r]);
+          else if (MODE == kFast || MODE == kFastBf16)
+            p = __fmul_rn(weight<MODE>(s[j][e], 0.f), inv[r]);
+          s[j][e] = edge && k0 + j * 8 + 2 * t + (e % 2) >= Skv ? 0.f : p;
+        }
+      mma_xb<NT, HDP>(o, s, Vs + buf * TILE);
+    }
+    __syncthreads();  // buffer i % 2 read in full before stage i + 2 overwrites it
+  }
+
+  const int row_g = q0 + warp * 16 + g;  // this thread's rows: row_g and row_g + 8
+  T* ob = out + ((int64_t)b * H + h) * Sq * hd;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = row_g + (e / 2) * 8;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int d = 0; d < HDP / 8; ++d) {
+      const int col = d * 8 + 2 * t + (e % 2);
+      if (col < hd) {
+        const float x = MODE == kExact ? __fdiv_rn(o[d][e], l[e / 2]) : o[d][e];
+        ob[(int64_t)row * hd + col] = store_f<T>(x);
+      }
+    }
+  }
+}
+
+// The f32 FMA body (kThreads a block) or the bf16 tensor-core body
+// (kMmaThreads, registers capped at 128 for hd <= 64 so that 4 blocks share
+// an SM).
+template <typename T, int HDP, int MODE>
+__global__ void __launch_bounds__(kIsF32<T> ? kThreads : kMmaThreads,
+                                  kIsF32<T> ? 1 : HDP <= 64 ? 4 : 2)
+gattn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             T* __restrict__ out, int H, int Sq, int Skv, int hd, int64_t qsb, int64_t qsh,
+             int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
+             int64_t vss, float mult, bool vec) {
+  extern __shared__ __align__(16) unsigned char gattn_smem[];
+  if constexpr (kIsF32<T>)
+    gattn_fma<T, HDP, MODE>(reinterpret_cast<float*>(gattn_smem), q, k, v, out, H, Sq, Skv, hd,
+                            qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, mult);
+  else
+    gattn_mma<HDP, MODE>(gattn_smem, q, k, v, out, H, Sq, Skv, hd, qsb, qsh, qss, ksb, ksh, kss,
+                         vsb, vsh, vss, mult, vec);
+}
+
 // ------------------------------------------------------------------ launch
 
-inline size_t smem_bytes(int hdp) {
-  return sizeof(float) * (3 * (size_t)kTile * (hdp + 1) + (size_t)kTile * (kTile + 1));
+// f32: Q, K, V and P tiles in f32; bf16: Q, 2 K and 2 V tiles in bf16.
+template <typename T, int HDP>
+constexpr size_t smem_bytes() {
+  return kIsF32<T> ? sizeof(float) * (3 * (size_t)kTile * (HDP + 1) + (size_t)kTile * (kTile + 1))
+                   : sizeof(T) * 5 * MmaTile<T, HDP>::kElems;
 }
 
 // What the kernel takes: at most 65535 images and heads (grid z and y), Sq,
@@ -329,17 +548,27 @@ struct Args {
   float mult;
 };
 
+// Whether every row the bf16 kernel stages from q, k and v starts on a
+// 16-byte boundary and holds whole 16-byte chunks, so cp.async can copy it.
+inline bool vectorizable(const Args& a) {
+  constexpr int chunk = 16 / sizeof(__nv_bfloat16);
+  bool ok = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && a.hd % chunk == 0;
+  const int64_t strides[] = {a.qsb, a.qsh, a.qss, a.ksb, a.ksh, a.kss, a.vsb, a.vsh, a.vss};
+  for (int64_t st : strides) ok = ok && st % chunk == 0;
+  return ok;
+}
+
 template <typename T, int HDP, int MODE>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(HDP);
+  constexpr size_t smem = smem_bytes<T, HDP>();
   cudaError_t err = cudaFuncSetAttribute(gattn_kernel<T, HDP, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + kTile - 1) / kTile, a.H, a.B);
-  gattn_kernel<T, HDP, MODE><<<grid, kThreads, smem, stream>>>(
+  gattn_kernel<T, HDP, MODE><<<grid, kIsF32<T> ? kThreads : kMmaThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<T*>(a.out), a.H, a.Sq, a.Skv, a.hd, a.qsb, a.qsh, a.qss, a.ksb, a.ksh, a.kss,
-      a.vsb, a.vsh, a.vss, a.mult);
+      a.vsb, a.vsh, a.vss, a.mult, !kIsF32<T> && vectorizable(a));
   return cudaGetLastError();
 }
 

@@ -28,8 +28,13 @@ F32_TOL = 1e-4
 #: flip one rounding: one bf16 ulp (2^-7 relative) at the largest magnitude
 BF16_REL = 2.0 ** -7
 
-# (B, H, W, C, O): odd sizes, the CIFAR stem's C 3, the AML widths, a 4x4 image
-SHAPES = [(3, 5, 7, 3, 8), (2, 6, 5, 20, 24), (2, 4, 4, 20, 40), (1, 3, 9, 16, 16)]
+# (B, H, W, C, O): odd sizes, the CIFAR stem's C 3, the AML widths, a 4x4 image;
+# then the card kernels' tile edges: C and O of 16, 17 and 65 (one past the
+# 16-channel mma tile and the 64-channel block tile), pixel rows that are no
+# whole 16-byte chunks (C 5: 10 bytes in bf16) in 3x3 images, each smaller
+# than one 16-pixel mma tile
+SHAPES = [(3, 5, 7, 3, 8), (2, 6, 5, 20, 24), (2, 4, 4, 20, 40), (1, 3, 9, 16, 16),
+          (2, 5, 7, 16, 17), (1, 3, 4, 17, 65), (1, 4, 3, 65, 16), (3, 3, 3, 5, 17)]
 
 
 def _inputs(b, h, w, c, o, seed=0):

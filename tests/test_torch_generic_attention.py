@@ -60,6 +60,11 @@ FAST_TOL = BF16_TOL + 6e-3
 
 # (B, H, Sq, Skv, hd): Sq != Skv, Skv < Sq, Sq not a multiple of 8, hd 4, 8, 64
 SHAPES = [(2, 3, 9, 13, 8), (1, 2, 17, 5, 4), (2, 2, 10, 19, 64), (1, 1, 3, 1, 8)]
+# the edges of the card kernel's tiles (a warp's 16 query rows, a block's 64
+# queries, the 64-key tiles) at hd 64, Sq == Skv and not, and one at hd 128;
+# B * H even for the tool bodies' two heads a program
+EDGE_SHAPES = [(1, 2, 16, 16, 64), (1, 2, 64, 65, 64), (1, 2, 128, 65, 64),
+               (1, 2, 65, 128, 128)]
 
 
 def _qkv(b, h, sq, skv, d, seed=0):
@@ -129,7 +134,7 @@ def _pallas_body(body, q, k, v, g, smult=16):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 def test_plain_matches_attention_kernel_body(shape, dtype):
     *_, d = shape
     scale = 1.0 / np.sqrt(d)
@@ -267,7 +272,7 @@ def _bodies(scale, skv):
 
 
 @pytest.mark.parametrize("variant", ["v2", "v2_nomax", "fast", "fast_bf16sm", "qblock", "mmonly"])
-@pytest.mark.parametrize("shape", V_SHAPES)
+@pytest.mark.parametrize("shape", V_SHAPES + EDGE_SHAPES)
 def test_variant_plain_matches_bench_attention_body(shape, variant):
     *_, skv, d = shape
     scale = 1.0 / np.sqrt(d)

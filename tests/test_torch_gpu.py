@@ -238,7 +238,12 @@ def test_moe_adapter_step_launches_the_masked_backward_per_text_block(cuda):
 #: relative to the largest magnitude, as above (dw is f32 in both)
 CONV_SHAPES = [(3, 5, 7, 3, 8), (2, 9, 6, 20, 24), (2, 4, 4, 20, 24), (5, 3, 3, 7, 70),
                (2, 3, 80, 16, 16), (4, 8, 8, 64, 64), (1, 2, 9, 5, 6),
-               (1, 70, 70, 8, 8)]  # (B, H, W, C, O); the last two outside the TPU gate
+               (1, 70, 70, 8, 8),  # (B, H, W, C, O); the last two outside the TPU gate
+               # the weight gradient's tile edges: C and O of 16, 17 and 65, rows
+               # of no whole 16-byte chunks (C 5), images smaller than a 16-pixel
+               # mma tile (3 x 3, 1 x 1), a 128-pixel step spanning nine images
+               (2, 5, 7, 16, 17), (1, 3, 4, 17, 65), (1, 4, 3, 65, 16), (3, 3, 3, 5, 17),
+               (40, 1, 1, 8, 8), (9, 4, 4, 32, 72)]
 
 
 def _conv_inputs(cuda, shape, dtype):
@@ -263,6 +268,19 @@ def test_conv_kernels_match_plain(cuda, dtype, shape):
     assert _err(y, C.conv3x3_plain(x, k)) <= TOL[dtype]
     assert _err(dx, C.conv3x3_plain(go, C.rotate_taps(k))) <= TOL[dtype]
     assert dw.dtype == torch.float32 and _err(dw, C.conv3x3_dw_plain(x, go)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 32, 64, 64), (16, 4, 4, 512, 512)])
+def test_conv_dw_is_deterministic(cuda, shape):
+    """The bf16 weight gradient twice on the same inputs at a main-path
+    shape (resnet18's first and last stage at B 16): bitwise-equal results
+    (a fixed-order reduce over the slices, no atomics)."""
+    from libcontinual_tpu_torch.ops import conv as C
+
+    x, _, go = _conv_inputs(cuda, shape, torch.bfloat16)
+    first, second = C.conv3x3_dw_cuda(x, go), C.conv3x3_dw_cuda(x, go)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_conv_autograd_launches_both_kernels(cuda):
@@ -335,8 +353,13 @@ def test_icarl_train_step_on_the_card(cuda):
 #: the bf16 rounding of one score moves that key's weight by up to
 #: 2^(2^-5) - 1 = 2.2% at |s| < 8, in either dtype
 BF16SM_TOL = 3e-2
-# (B, H, Sq, Skv, hd): Skv > Sq, Skv < Sq, Skv past 256 keys at hd 128, Sq == Skv
-G_SHAPES = [(2, 3, 9, 13, 8), (1, 2, 17, 5, 16), (2, 1, 33, 300, 128), (2, 3, 70, 70, 32)]
+# (B, H, Sq, Skv, hd): Skv > Sq, Skv < Sq, Skv past 256 keys at hd 128, Sq == Skv;
+# hd 8 and 20 (16 and 40 bytes a row: the first copied in 16-byte chunks, the
+# second element by element); the tensor-core tiles' edges at hd 64 (a warp's
+# 16 query rows, a block's 64 queries, the 64-key tiles) and at hd 128
+G_SHAPES = [(2, 3, 9, 13, 8), (1, 2, 17, 5, 16), (2, 1, 33, 300, 128), (2, 3, 70, 70, 32),
+            (2, 3, 33, 20, 20), (2, 2, 16, 16, 64), (2, 2, 64, 65, 64), (2, 2, 65, 128, 64),
+            (2, 2, 128, 64, 64), (2, 2, 65, 65, 128)]
 G_CASES = [(shape, fn) for shape in G_SHAPES
            for fn in ["attention", *T.VARIANTS] if fn != "flash" or shape[2] == shape[3]]
 
@@ -364,6 +387,20 @@ def test_generic_kernel_and_variants_match_plain(cuda, dtype, case):
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == dtype and out.is_contiguous()
     assert _err(out, ref) <= (BF16SM_TOL if fn == "fast_bf16sm" else TOL[dtype])
+
+
+def test_generic_forward_is_deterministic(cuda):
+    """The bf16 forward twice on the same inputs at a main-path shape (the
+    ViT-B/16 width at S 197), in each mode: bitwise-equal outputs."""
+    q, k, v = _generic_inputs(cuda, (4, 12, 197, 197, 64), torch.bfloat16)
+    scale = 64 ** -0.5
+    calls = {"attention": lambda: T.attention_cuda(q, k, v, scale)}
+    calls.update({fn: lambda fn=fn: T.attention_variant_cuda(q, k, v, scale, fn)
+                  for fn in T.VARIANTS})
+    for fn, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), fn
 
 
 def test_generic_autograd_launches_the_kernel_never_the_plain_version(cuda, monkeypatch):
