@@ -11,8 +11,9 @@ which raises on failure:
      and ``conv.cu`` (one ``nvcc`` each, started together), with their ptxas
      reports, and the count of HMMA instructions (tensor-core products) in
      the SASS of each bf16 instantiation of the packed forward and of both
-     backward kernels, of the generic forward (6 modes x 4 head dims) and of
-     the conv weight gradient's partial kernel (none in the f32 ones);
+     backward kernels, of the generic forward (6 modes x 4 head dims), of
+     the conv weight gradient's partial kernel and of the conv forward (both
+     block shapes) (none in the f32 ones);
   3. kernel checks, forward and backward, against the plain PyTorch versions:
      the packed-qkv kernels at a small odd shape (f32, bf16) and at the
      slices' shapes (B 16, S 197, 202 and 222, D 768, 12 heads, bf16); the
@@ -26,9 +27,10 @@ which raises on failure:
      ``M_LONG``: S 300 at hd 128, 257 keys, hd 48 and 20) and at the edges of
      the tensor-core kernels' 16- and 64-row tiles (``EDGE``, ``P_EDGE``,
      ``M_EDGE``: S 16, 64, 65 and 128 at hd 64; P + S 64 and 65); each bf16
-     backward twice at its timed shape, and the bf16 conv weight gradient
-     and generic forward (exact and ``fast``) twice at theirs, whose two
-     results must be equal bit for bit; the 3x3
+     backward twice at its timed shape, and the bf16 conv forward (y, and
+     dx on the rotated taps), conv weight gradient and generic forward
+     (exact and ``fast``) twice at theirs, whose two results must be equal
+     bit for bit; the 3x3
      convolution kernels (y, dx through the forward kernel on the rotated
      taps, and dw) at small odd shapes (f32, bf16, C 3 and 20, a 4 x 4 image)
      and at resnet18's CIFAR stem and four stages at B 128 (bf16);
@@ -51,11 +53,12 @@ which raises on failure:
   5. timing: each attention kernel against its plain version and against
      ``scaled_dot_product_attention`` on the flash and cuDNN backends (the
      backward's dq and dk/dv kernels also apart, from ``torch.profiler``), and
-     each conv kernel against its
-     plain version and cuDNN (the yardsticks, which the port never calls) at
-     the main path's shapes; the L2P, DualPrompt and MoE-Adapter4CL train
-     steps at the bench geometry (batch 128, bf16, 32 -> 224) with the
-     kernels and with the plain attention, and the iCaRL / resnet18 step
+     each conv kernel against its plain version and cuDNN (the yardsticks,
+     which the port never calls) at the main path's shapes, the forward also
+     as dx (on the output gradient and the rotated taps, beside cuDNN's data
+     gradient); the L2P, DualPrompt and MoE-Adapter4CL train steps at the
+     bench geometry (batch 128, bf16, 32 -> 224) with the kernels and with
+     the plain attention, and the iCaRL / resnet18 step
      (batch 128, bf16, 32 px), with a device-time breakdown of the L2P,
      DualPrompt, MoE-Adapter4CL and iCaRL steps from ``torch.profiler``;
      and the whole 10-task iCaRL protocol of ``bench.py``'s end-to-end block
@@ -432,7 +435,7 @@ def phase_build():
             nreg = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             attn = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
-            conv = re.search(r"(conv3x3_\w+?_kernel)(I(f|13__nv_bfloat16)E)?", chunk)
+            conv = re.search(r"(conv3x3_\w+?_kernel)(?:I(f|13__nv_bfloat16)(?:Li(\d)E)?E)?", chunk)
             gen = re.search(r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
             if not (nreg and spill):
                 continue
@@ -444,8 +447,9 @@ def phase_build():
                 kind, typ, hd, mode = attn.groups()
                 label = f"{_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} hd {hd:2s}"
             elif conv:
-                typ = conv.group(3)
-                label = f"conv  {conv.group(1):25s} {'' if typ is None else 'f32' if typ == 'f' else 'bf16'}"
+                kind, typ, mt = conv.groups()
+                dtype = "" if typ is None else "f32" if typ == "f" else "bf16"
+                label = f"conv  {kind:25s} {dtype}{'' if mt in (None, '0') else f' MT {mt}'}"
             else:
                 continue
             print(f"[build]   {label}: {nreg.group(1)} registers, {spill.group(1)} bytes spill stores")
@@ -472,10 +476,11 @@ def _hmma_counts(cuobjdump, library, pattern):
 
 def _check_tensor_cores(_build):
     """The bf16 instantiations of the packed forward and of both backward
-    kernels, of the generic forward ``gattn_kernel`` (6 modes x 4 head dims)
-    and of ``conv3x3_dw_partial_kernel`` run HMMA (the tensor cores'
-    mma.sync) in the built libraries' SASS, and the f32 ones none (CUDA-core
-    FMA: no TF32), as ``cuobjdump -sass`` shows."""
+    kernels, of the generic forward ``gattn_kernel`` (6 modes x 4 head dims),
+    of ``conv3x3_dw_partial_kernel`` and of ``conv3x3_fwd_kernel`` (both of
+    its block shapes) run HMMA (the tensor cores' mma.sync) in the built
+    libraries' SASS, and the f32 ones none (CUDA-core FMA: no TF32), as
+    ``cuobjdump -sass`` shows."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     attn_lib = _build.library_path("attention")
     hmma = _hmma_counts(cuobjdump, attn_lib,
@@ -496,8 +501,8 @@ def _check_tensor_cores(_build):
           f"in the f32 ones: {sorted(set(f32))}")
     _require(len(bf16) == len(f32) == 24 and all(bf16.values()) and not any(f32),
              "the bf16 gattn_kernel does not run on the tensor cores, or an f32 one does")
-    conv = _hmma_counts(cuobjdump, _build.library_path("conv"),
-                        r"(conv3x3_dw_partial_kernel)I(f|13__nv_bfloat16)E")
+    conv_lib = _build.library_path("conv")
+    conv = _hmma_counts(cuobjdump, conv_lib, r"(conv3x3_dw_partial_kernel)I(f|13__nv_bfloat16)E")
     bf16 = [n for (_, typ), n in conv.items() if typ != "f"]
     f32 = [n for (_, typ), n in conv.items() if typ == "f"]
     print(f"[build] SASS: HMMA instructions in the bf16 conv3x3_dw_partial_kernel: {bf16}; "
@@ -505,6 +510,15 @@ def _check_tensor_cores(_build):
     _require(len(bf16) == len(f32) == 1 and all(bf16) and not any(f32),
              "the bf16 conv3x3_dw_partial_kernel does not run on the tensor cores, or the f32 "
              "one does")
+    # the forward: one bf16 instantiation for each block shape (MT 2 and 4:
+    # 128 and 256 pixels), one f32
+    fwd = _hmma_counts(cuobjdump, conv_lib, r"conv3x3_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E")
+    bf16 = {int(mt): n for (typ, mt), n in sorted(fwd.items()) if typ != "f"}
+    f32 = [n for (typ, _), n in fwd.items() if typ == "f"]
+    print(f"[build] SASS: HMMA instructions in each bf16 conv3x3_fwd_kernel (MT): {bf16}; "
+          f"in the f32 one: {f32}")
+    _require(len(bf16) == 2 and len(f32) == 1 and all(bf16.values()) and not any(f32),
+             "the bf16 conv3x3_fwd_kernel does not run on the tensor cores, or the f32 one does")
 
 
 def _inputs(shape, dtype, dev, seed):
@@ -675,16 +689,20 @@ def phase_bwd_determinism(dev):
 
 
 def phase_fwd_determinism(dev):
-    """The redesigned bf16 kernels twice on the same inputs: the weight
-    gradient at ``C_TIMED`` and the generic forward (``attention_cuda``,
-    the variant ``fast``) at ``G_TIMED[0]``; the results agree bit for bit
-    (no atomics; every sum runs in a fixed order)."""
+    """The redesigned bf16 kernels twice on the same inputs: the conv
+    forward (y, and dx on the rotated taps) and weight gradient at
+    ``C_TIMED`` and the generic forward (``attention_cuda``, the variant
+    ``fast``) at ``G_TIMED[0]``; the results agree bit for bit (no atomics;
+    every sum runs in a fixed order)."""
     A, C = _attention_modules()[0], _conv_module()
-    x, _, go = _conv_inputs(C_TIMED, torch.bfloat16, dev, seed=14)
+    x, taps, go = _conv_inputs(C_TIMED, torch.bfloat16, dev, seed=14)
+    rotated = C.rotate_taps(taps).contiguous()
     shape = tuple(G_TIMED[0][1:])
     q, k, v = _generic_inputs(shape, torch.bfloat16, dev, seed=15, strided=False)
     scale = shape[-1] ** -0.5
     calls = {
+        ("conv3x3_fwd y", C_TIMED): lambda: C.conv3x3_cuda(x, taps),
+        ("conv3x3_fwd dx", C_TIMED): lambda: C.conv3x3_cuda(go, rotated),
         ("conv3x3_dw", C_TIMED): lambda: C.conv3x3_dw_cuda(x, go),
         ("attn_fwd", shape): lambda: A.attention_cuda(q, k, v, scale),
         ("attn_fwd_fast", shape): lambda: A.attention_variant_cuda(q, k, v, scale, "fast"),
@@ -1775,9 +1793,11 @@ def _conv_bounds(b, h, w, c, o):
 def phase_conv_timing(dev, card):
     """The conv kernels at the stem and the four stages (bf16, B 128),
     beside their plain versions and cuDNN (``F.conv2d`` on ``channels_last``
-    and its weight gradient through ``aten.convolution_backward``; the port
-    never calls them). Returns {shape: (fwd times, fwd bound, dw times, dw
-    bound)}."""
+    and its data and weight gradients through ``aten.convolution_backward``;
+    the port never calls them): y, dx (the forward kernel on the output
+    gradient and the rotated taps, bound by ``_conv_bounds`` with C and O
+    swapped) and dw. Returns {shape: (fwd times, fwd bound, dw times, dw
+    bound, dx times, dx bound)}."""
     C = _conv_module()
     out = {}
     for shape in C_MAIN:
@@ -1785,6 +1805,7 @@ def phase_conv_timing(dev, card):
         x, k, go = _conv_inputs(shape, torch.bfloat16, dev, seed=9)
         xc, gc = x.permute(0, 3, 1, 2), go.permute(0, 3, 1, 2)  # NCHW views of NHWC memory
         kc = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        kr = C.rotate_taps(k).contiguous()
         tag = f"B {b} {h}x{w} C {c} -> O {o} bf16"
         fwd = _time_pair(f"conv3x3_fwd at {tag}", {
             "plain": lambda: C.conv3x3_plain(x, k),
@@ -1795,11 +1816,18 @@ def phase_conv_timing(dev, card):
             "library": lambda: torch.ops.aten.convolution_backward(
                 gc, xc, kc, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]),
             "kernel": lambda: C.conv3x3_dw_cuda(x, go)}, card, library="cudnn")
+        dx = _time_pair(f"conv3x3_fwd (dx) at {tag}", {
+            "plain": lambda: C.conv3x3_plain(go, kr),
+            "library": lambda: torch.ops.aten.convolution_backward(
+                gc, xc, kc, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False]),
+            "kernel": lambda: C.conv3x3_cuda(go, kr)}, card, library="cudnn")
         bound_fwd, bound_dw = _conv_bounds(*shape)
+        bound_dx = _conv_bounds(b, h, w, o, c)[0]
         print(f"[bound] conv3x3 at {tag}: forward {bound_fwd[0] * 1e3:.1f} us ({bound_fwd[1]}), "
+              f"dx {bound_dx[0] * 1e3:.1f} us ({bound_dx[1]}), "
               f"dw {bound_dw[0] * 1e3:.1f} us ({bound_dw[1]})")
-        out[shape] = (fwd, bound_fwd, dw, bound_dw)
-        del x, k, go, xc, gc, kc
+        out[shape] = (fwd, bound_fwd, dw, bound_dw, dx, bound_dx)
+        del x, k, go, xc, gc, kc, kr
     return out
 
 
@@ -2023,7 +2051,7 @@ def main() -> int:
 
     times = phase_kernel_timing(dev, card)
     conv_times = phase_conv_timing(dev, card)
-    fwd, bound_fwd, dw, bound_dw = conv_times[C_TIMED]
+    fwd, bound_fwd, dw, bound_dw, dx, bound_dx = conv_times[C_TIMED]
     times["conv3x3_fwd"], times["conv3x3_dw"] = (fwd, bound_fwd), (dw, bound_dw)
     t_gen = time.perf_counter()
     times.update(phase_generic_timing(dev, card))
@@ -2064,6 +2092,9 @@ def main() -> int:
             b, h, w, c, o = C_TIMED
             entry["library"] = "cuDNN"
             entry["shape"] = f"B {b} {h}x{w} C {c} -> O {o} bf16"
+            if kname == "conv3x3_fwd":  # dx: the same kernel at C_TIMED with C and O swapped
+                entry["dx_ms"], entry["dx_plain_ms"] = dx["kernel"], dx["plain"]
+                entry["dx_library_ms"], entry["dx_bound_ms"] = dx["library"], bound_dx[0]
         else:
             entry["library"] = best["library_name"] and f"SDPA ({best['library_name']})"
         if kname.startswith("attn"):

@@ -19,20 +19,52 @@
 // PyTorch versions (ops/conv.py) is the order of the f32 sums.
 //
 // What bounds them on an H100: a resnet18 stage at CIFAR geometry (B 128,
-// 64 -> 64 at 32 x 32 ... 512 -> 512 at 4 x 4) is 9.66 GFLOP on 16.8 MB of
-// bf16 activations, about 576 FLOP per byte, so the least time is set by the
-// tensor cores (about 9.8 us at 989 TFLOP/s), not by the 5-10 us of bytes.
-//   * forward (both dtypes): f32 FMA on the CUDA cores (67 TFLOP/s at most),
-//     fed from shared memory, so bound by those FMAs and the shared-memory
-//     reads that feed them. A block owns 64 output pixels (a tile of rows of
-//     one image, or several whole small images) by 64 output channels. For
-//     each chunk of 16 input channels it stages the input rows the tile
-//     needs, with the 1-pixel zero halo, in shared memory (f32) once, and the
-//     chunk's taps of all 9 positions; the 9 tap-shifted products then read
-//     the same staged rows, so an input element is read from device memory
-//     once per chunk and not 9 times. Each thread keeps a 4 pixel x 4
-//     channel tile of f32 sums in registers (5 shared-memory reads for 16
-//     FMAs).
+// 64 -> 64 at 32 x 32 ... 512 -> 512 at 4 x 4) is 9.66 GFLOP; the forward
+// reads 16.8 MB of bf16 x and writes 16.8 MB of y, about 288 FLOP per byte,
+// which is at the card's ridge (about 295 FLOP per byte of bf16), so bytes
+// (10.0 us at 3.35 TB/s) and tensor-core FLOPs (9.8 us at 989 TFLOP/s) give
+// about the same least time. The weight gradient reads x and g: the same.
+//   * forward, bf16: an implicit GEMM on the tensor cores (mma.sync
+//     m16n8k16, bf16 in, f32 accumulators) with the output pixels m (M =
+//     B*H*W, flattened over the batch) as rows, o as columns and the 9 * C
+//     taps and channels as its depth. A block of 8 warps owns 64 MT pixels
+//     by 64 output channels, 4 x 2 warps of 16 MT pixels by 32 channels: MT
+//     4 (256 pixels, 64 f32 sums a thread) where those blocks fill every
+//     SM, else MT 2 (128 pixels; l3 and l4 of resnet18 at B 128). A step is
+//     one row of taps dh and one chunk of input channels (32 at MT 4, 64 at
+//     MT 2); it stages, with 16-byte cp.async copies into a ring of 3 (MT 4)
+//     or 2 (MT 2) bf16 buffers (rows padded by 16 bytes, so ldmatrix hits
+//     every bank once), two blocks an SM: the x window, pixels m0 + (dh - 1)
+//     W - 1 ... m0 + (dh - 1) W + 64 MT, one contiguous run of the flattened
+//     pixels whatever W is (64-bit offsets), and the chunk's (c x o) taps of
+//     the row's 3 positions. The A-fragments (x, pixels x c) of tap dw come
+//     from that one window by ldmatrix, each lane at its own pixel's row
+//     shifted by dw; the B-fragments (taps, c x o) by ldmatrix.trans. A tap
+//     that falls outside the image (the 1-pixel halo, a neighbouring image's
+//     row where a tile spans several images, or a pixel past M) points its
+//     lane at a zero row instead: each lane computes the mask of the 9 valid
+//     taps of its pixels once per block, so x is read from device memory 3
+//     times per o-tile (once per dh), not 9, and the inner loop has no
+//     divide. A warp's 16 MT pixels of one tap and 16 channels are MT + 2
+//     ldmatrix for 4 MT mma. Channels past C (a short last chunk, the stem's
+//     C 3) are zero in shared memory only, and the products stop at the last
+//     16 channels that hold any; columns past O are zero in shared memory
+//     and masked at the store, and a warp whose 32 columns all lie past O
+//     (dx at the stem, O 3) only stages. Rows that are not whole 16-byte
+//     chunks (C or O not a multiple of 8) are staged element by element.
+//     Every sum runs in one fixed order (no split of the depth, no atomics):
+//     two calls give the same bits. y goes from the accumulator fragments to
+//     device memory, rounded once. dx is this kernel on the output gradient
+//     and the rotated taps.
+//   * forward, f32 (the checks hold it to 1e-5, so no TF32): f32 FMA on the
+//     CUDA cores (67 TFLOP/s at most), fed from shared memory. A block owns
+//     64 output pixels (a tile of rows of one image, or several whole small
+//     images) by 64 output channels. For each chunk of 16 input channels it
+//     stages the input rows the tile needs, with the 1-pixel zero halo, in
+//     shared memory (f32) once, and the chunk's taps of all 9 positions; the
+//     9 tap-shifted products then read the same staged rows. Each thread
+//     keeps a 4 pixel x 4 channel tile of f32 sums in registers (5
+//     shared-memory reads for 16 FMAs).
 //   * weight gradient: dw[tap] = x_tap^T . g is a reduction over the M =
 //     B*H*W pixels, split into S slices of M: a partial kernel writes one
 //     f32 sum per slice, and conv3x3_dw_reduce_kernel adds the slices in a
@@ -64,7 +96,6 @@
 //     f32 (the checks hold it to 1e-5, so no TF32): the FMA body, a block
 //     owning one tap's 64 x 64 (c, o) tile as a 16 x 16 thread grid, on the
 //     same slices.
-// The forward on the tensor cores is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,8 +119,30 @@ constexpr int kLd = kBN + 8;             // bf16 row of a staged tile: 64 channe
 constexpr int kRowChunks = kBN / 8;      // 16-byte chunks of a staged row
 constexpr int kXRows = kKC + 3;          // x window: kKC + 2 pixel rows and the zero row
 constexpr int kZeroRow = kKC + 2;
-constexpr int kTargetBlocks = 2 * 132;   // bf16 partial blocks: about two an SM
+constexpr int kSMs = 132;                // an H100 SXM's streaming multiprocessors
+constexpr int kTargetBlocks = 2 * kSMs;  // bf16 partial blocks: about two an SM
 constexpr int kMinSlice = 4 * kKC;       // the shortest slice of M, in pixels
+// The bf16 forward on the tensor cores: a block of 8 warps, 4 along the
+// pixels by 2 along the output channels, each warp 16 MT pixels (MT m16
+// tiles) by 32 channels, so 64 MT pixels a block. MT 4 (256 pixels) stages
+// 32 input channels a step, 3 steps in flight; MT 2 (128 pixels) 64
+// channels, 2 steps (fewer, larger steps where M is small and the depth
+// long).
+constexpr int kFwdThreads = 256;
+__host__ __device__ constexpr int fwd_kc(int MT) { return MT == 4 ? 32 : 64; }
+__host__ __device__ constexpr int fwd_stages(int MT) { return MT == 4 ? 3 : 2; }
+// a staged x row: the step's channels + 16 bytes
+__host__ __device__ constexpr int fwd_ldx(int MT) { return fwd_kc(MT) + 8; }
+// shared memory: the stages' x windows (64 MT + 2 pixel rows and the zero
+// row) and their 3 taps' (channels x 64) tiles
+__host__ __device__ constexpr size_t fwd_mma_smem(int MT) {
+  return sizeof(__nv_bfloat16) * fwd_stages(MT) *
+         ((64 * MT + 3) * fwd_ldx(MT) + 3 * fwd_kc(MT) * kLd);
+}
+// two blocks an SM at either MT (228 KB of shared memory an SM, 1 KB of it
+// reserved per block), so __launch_bounds__ caps a thread at 128 registers
+static_assert(2 * (fwd_mma_smem(4) + 1024) <= 233472 && 2 * (fwd_mma_smem(2) + 1024) <= 233472,
+              "two forward blocks must fit an SM's shared memory");
 constexpr size_t kDwSmem =
     sizeof(__nv_bfloat16) * 2 * (kXRows + kKC) * kLd + 2 * kKC;  // 2 buffers + the masks
 
@@ -135,11 +188,11 @@ inline size_t fwd_smem_bytes(const Tile& t) {
   return (9 * kCK * kBN + npos * kCK) * sizeof(float);
 }
 
+// f32: a block of kThreads owns one Tile of output pixels by kBN channels.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int B,
-                   int H, int W, int C, int O, Tile tile) {
-  extern __shared__ __align__(16) float smem[];
+__device__ __forceinline__ void fwd_fma(float* smem, const T* __restrict__ x,
+                                        const T* __restrict__ w, T* __restrict__ y, int B, int H,
+                                        int W, int C, int O, const Tile& tile) {
   float* sw = smem;                  // [9][kCK][kBN] taps of the chunk
   float* sx = smem + 9 * kCK * kBN;  // [nb][tr + 2][tw + 2][kCK] input rows with the halo
   const int ph = tile.tr + 2, pw = tile.tw + 2;
@@ -216,6 +269,206 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
       if (n < O) y[out_off[i] + n] = from_f<T>(acc[i][j]);
     }
   }
+}
+
+// bf16: a block of kFwdThreads owns pixels m0 = 64 MT blockIdx.x ... (the
+// flattened B*H*W) by channels o0 = kBN blockIdx.y ...; warp w owns pixels
+// m0 + 16 MT (w / 2) ... and channels o0 + 32 (w % 2) ... . Step i is the
+// row of taps dh = i % 3 and the input channels c0 = KC (i / 3) ...: the x
+// window (row r is pixel m0 + (dh - 1) W - 1 + r, r < 64 MT + 2; the row
+// after them stays zero) and the taps dh * 3 + t, t < 3 (rows t * KC + c),
+// staged into buffer i % NS while the steps before it are computed.
+template <int MT>
+__device__ __forceinline__ void fwd_mma(unsigned char* smem, const __nv_bfloat16* __restrict__ x,
+                                        const __nv_bfloat16* __restrict__ w,
+                                        __nv_bfloat16* __restrict__ y, int B, int H, int W, int C,
+                                        int O, bool vec_x, bool vec_w, bool vec_y) {
+  using T = __nv_bfloat16;
+  constexpr int KC = fwd_kc(MT), NS = fwd_stages(MT), LDX = fwd_ldx(MT);
+  constexpr int NT = kFwdThreads;
+  constexpr int BM = 64 * MT;          // pixels a block
+  constexpr int XR = BM + 3;           // window rows: BM + 2 pixels and the zero row
+  constexpr int ZR = BM + 2;
+  T* Xs = reinterpret_cast<T*>(smem);  // NS x XR x LDX
+  T* Ws = Xs + NS * XR * LDX;          // NS x 3 KC x kLd
+  const long long M = (long long)B * H * W;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int o0 = blockIdx.y * kBN;
+  const int no = O - o0 < kBN ? O - o0 : kBN;
+  const int steps = 3 * ((C + KC - 1) / KC);
+  const int tid = threadIdx.x;
+  const T zero = __float2bfloat16_rn(0.f);
+
+  // zero once what no step writes and the products read: each buffer's zero
+  // row, and (element-wise taps) the columns past no
+  for (int e = tid; e < NS * (KC / 8); e += NT)
+    reinterpret_cast<uint4*>(Xs + ((e / (KC / 8)) * XR + ZR) * LDX)[e % (KC / 8)] =
+        make_uint4(0u, 0u, 0u, 0u);
+  if (!vec_w)
+    for (int e = tid; e < NS * 3 * KC * kLd / 8; e += NT)
+      reinterpret_cast<uint4*>(Ws)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // Stages step i: the rows' channels, zero past nc (the element-wise
+  // staging writes c < kc, nc rounded up to 16: what the products read).
+  auto prefetch = [&](int i) {
+    const int dh = i % 3, c0 = (i / 3) * KC;
+    const int nc = C - c0 < KC ? C - c0 : KC, kc = (nc + 15) / 16 * 16;
+    const long long f0 = m0 + (long long)(dh - 1) * W - 1;  // the pixel of window row 0
+    T* xd = Xs + (i % NS) * XR * LDX;
+    T* wd = Ws + (i % NS) * 3 * KC * kLd;
+    // The 16-byte copies cover every chunk of a row, zero-filled past nc or
+    // outside x, with no branch around them (a branch per copy cost more than
+    // the zero chunks of a short last chunk of channels).
+    if (vec_x) {  // nc is a multiple of 8: a 16-byte chunk is all in or all out
+#pragma unroll
+      for (int e = tid; e < (BM + 2) * (KC / 8); e += NT) {
+        const int r = e / (KC / 8), c = e % (KC / 8) * 8;
+        const long long f = f0 + r;
+        const bool ok = f >= 0 && f < M && c < nc;
+        lct::cp_async16(xd + r * LDX + c, ok ? x + f * C + c0 + c : x, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < (BM + 2) * kc; e += NT) {
+        const int r = e / kc, c = e - r * kc;
+        const long long f = f0 + r;
+        xd[r * LDX + c] = f >= 0 && f < M && c < nc ? x[f * C + c0 + c] : zero;
+      }
+    }
+    const T* wsrc = w + ((long long)dh * 3 * C + c0) * O + o0;  // tap dh * 3, channel c0
+    if (vec_w) {  // every 16-byte chunk of a row; those past no or nc zero-filled
+#pragma unroll
+      for (int e = tid; e < 3 * KC * kRowChunks; e += NT) {
+        const int r = e / kRowChunks, oc = e % kRowChunks * 8;
+        const int t = r / KC, c = r % KC;
+        const bool ok = c < nc && oc < no;
+        lct::cp_async16(wd + r * kLd + oc, ok ? wsrc + ((long long)t * C + c) * O + oc : w,
+                        ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < 3 * kc * no; e += NT) {
+        const int r = e / no, o = e - r * no;
+        const int t = r / kc, c = r - t * kc;
+        wd[(t * KC + c) * kLd + o] = c < nc ? wsrc[((long long)t * C + c) * O + o] : zero;
+      }
+    }
+  };
+
+  const int warp = tid / 32, lane = tid % 32, wm = warp / 2, wo = warp % 2;
+  // this lane's A rows (pixel p of each m16 tile, lane % 16) and their masks
+  // of valid taps: bit dh * 3 + dw where that tap reads inside the image
+  int prow[MT];
+  unsigned pmask[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    prow[mt] = wm * 16 * MT + mt * 16 + lane % 16;
+    const long long m = m0 + prow[mt];
+    pmask[mt] = 0;
+    if (m < M) {
+      const long long q = m / W;
+      const int wq = (int)(m - q * W), hq = (int)(q % H);
+      const unsigned cols = (wq > 0 ? 1u : 0u) | 2u | (wq + 1 < W ? 4u : 0u);
+      pmask[mt] = (hq > 0 ? cols : 0u) | cols << 3 | (hq + 1 < H ? cols << 6 : 0u);
+    }
+  }
+  // a warp whose 32 channels all lie past O only stages
+  const bool live = wo * 32 < no;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < steps) prefetch(i);
+    lct::cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    lct::cp_async_wait<NS - 2>();
+    __syncthreads();  // step i visible to every warp, step i - 1 read in full
+    if (i + NS - 1 < steps) prefetch(i + NS - 1);  // into step i - 1's buffers
+    lct::cp_async_commit();
+    if (!live) continue;
+    const int dh = i % 3, c0 = (i / 3) * KC;
+    const int nks = ((C - c0 < KC ? C - c0 : KC) + 15) / 16;  // 16-channel slices that hold any
+    const T* xb = Xs + (i % NS) * XR * LDX;
+    const T* wb = Ws + (i % NS) * 3 * KC * kLd;
+    unsigned rmask[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) rmask[mt] = pmask[mt] >> (3 * dh);
+    // the 3 taps of channels ks * 16 ... + 15
+    auto k16 = [&](int ks) {
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        // B (taps, c x o) through ldmatrix.trans: bf[np] holds the k halves
+        // of output tiles 2 np and 2 np + 1
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          lct::ldmatrix_x4_trans(bf[np], wb + (t * KC + ks * 16 + (lane % 8) +
+                                               ((lane / 8) % 2) * 8) * kLd +
+                                              wo * 32 + np * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // A (x, pixels x c): this lane's pixel row shifted by the tap, or
+          // the zero row
+          const int row = (rmask[mt] >> t) & 1 ? prow[mt] + t : ZR;
+          uint32_t a[4];
+          lct::ldmatrix_x4(a, xb + row * LDX + ks * 16 + (lane / 16) * 8);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            lct::mma_bf16(acc[mt][nt], a, bf[nt / 2][(nt % 2) * 2], bf[nt / 2][(nt % 2) * 2 + 1]);
+        }
+      }
+    };
+    if (nks == KC / 16) {
+#pragma unroll
+      for (int ks = 0; ks < KC / 16; ++ks) k16(ks);
+    } else {
+#pragma unroll 1
+      for (int ks = 0; ks < nks; ++ks) k16(ks);
+    }
+  }
+  if (!live) return;
+
+  // y from the fragments: rows gq and gq + 8 of each m16 tile, columns 2 tq
+  // and 2 tq + 1 of each n8 tile; rounded once
+  const int gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long m = m0 + wm * 16 * MT + mt * 16 + gq + half * 8;
+      if (m >= M) continue;
+      T* dst = y + m * O;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int o = o0 + wo * 32 + nt * 8 + 2 * tq;
+        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
+        if (vec_y && o < O) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + o) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (o < O) dst[o] = __float2bfloat16_rn(v0);
+          if (o + 1 < O) dst[o + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+}
+
+// The forward: the f32 FMA body, or the bf16 tensor-core body at 64 MT
+// pixels a block (MT is 0 for f32).
+template <typename T, int MT>
+__global__ void __launch_bounds__(kIsF32<T> ? kThreads : kFwdThreads, kIsF32<T> ? 1 : 2)
+conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int B,
+                   int H, int W, int C, int O, Tile tile, bool vec_x, bool vec_w, bool vec_y) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  if constexpr (kIsF32<T>)
+    fwd_fma<T>(reinterpret_cast<float*>(fwd_smem), x, w, y, B, H, W, C, O, tile);
+  else
+    fwd_mma<MT>(fwd_smem, x, w, y, B, H, W, C, O, vec_x, vec_w, vec_y);
 }
 
 // The weight-gradient split, for both dtypes: S slices of M, each slice_len
@@ -487,18 +740,42 @@ __global__ void conv3x3_dw_reduce_kernel(const float* __restrict__ partial, floa
   dw[i] = sum;
 }
 
+template <typename T, int MT>
+cudaError_t launch_fwd(dim3 grid, int threads, size_t smem, const void* x, const void* w, void* y,
+                       int B, int H, int W, int C, int O, const Tile& tile, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_fwd_kernel<T, MT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // 16-byte cp.async copies of whole rows: aligned pointers, rows of whole
+  // chunks; y by pairs of channels where every pair is 4-byte aligned
+  const bool vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 && C % 8 == 0;
+  const bool vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && O % 8 == 0;
+  const bool vec_y = reinterpret_cast<uintptr_t>(y) % 4 == 0 && O % 2 == 0;
+  conv3x3_fwd_kernel<T, MT><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), B, H, W, C, O, tile,
+      vec_x, vec_w, vec_y);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t fwd(const void* x, const void* w, void* y, int B, int H, int W, int C, int O,
                 cudaStream_t stream) {
   const Tile tile = fwd_tile(B, H, W);
-  const size_t smem = fwd_smem_bytes(tile);
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(tile.tiles_b * tile.tiles_h * tile.tiles_w, (O + kBN - 1) / kBN);
-  conv3x3_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), B, H, W, C, O, tile);
-  return cudaGetLastError();
+  const unsigned o_tiles = (O + kBN - 1) / kBN;
+  if constexpr (kIsF32<T>) {
+    dim3 grid(tile.tiles_b * tile.tiles_h * tile.tiles_w, o_tiles);
+    return launch_fwd<T, 0>(grid, kThreads, fwd_smem_bytes(tile), x, w, y, B, H, W, C, O, tile,
+                            stream);
+  } else {
+    // 256-pixel blocks where they fill every SM, else 128-pixel blocks
+    const long long M = (long long)B * H * W;
+    const long long tiles256 = (M + 255) / 256;
+    if (tiles256 * o_tiles >= kSMs)
+      return launch_fwd<T, 4>(dim3((unsigned)tiles256, o_tiles), kFwdThreads, fwd_mma_smem(4), x, w,
+                              y, B, H, W, C, O, tile, stream);
+    return launch_fwd<T, 2>(dim3((unsigned)((M + 127) / 128), o_tiles), kFwdThreads,
+                            fwd_mma_smem(2), x, w, y, B, H, W, C, O, tile, stream);
+  }
 }
 
 template <typename T>
@@ -524,7 +801,7 @@ cudaError_t dw(const void* x, const void* g, float* partial, float* out, int B, 
   return cudaGetLastError();
 }
 
-// Any image size: the forward tile is at most kBM pixels and its staged rows
+// Any image size: a forward block owns at most 128 pixels and its staged rows
 // do not grow with H * W; the weight gradient's slices cover M whatever it is.
 inline bool shape_ok(int B, int H, int W, int C, int O) {
   return B > 0 && H > 0 && W > 0 && C > 0 && O > 0;

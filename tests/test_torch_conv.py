@@ -32,9 +32,11 @@ BF16_REL = 2.0 ** -7
 # then the card kernels' tile edges: C and O of 16, 17 and 65 (one past the
 # 16-channel mma tile and the 64-channel block tile), pixel rows that are no
 # whole 16-byte chunks (C 5: 10 bytes in bf16) in 3x3 images, each smaller
-# than one 16-pixel mma tile
+# than one 16-pixel mma tile; a row wider than the forward's 128-pixel tile
+# (W 200), and O 3 (dx at the CIFAR stem writes 3 channels)
 SHAPES = [(3, 5, 7, 3, 8), (2, 6, 5, 20, 24), (2, 4, 4, 20, 40), (1, 3, 9, 16, 16),
-          (2, 5, 7, 16, 17), (1, 3, 4, 17, 65), (1, 4, 3, 65, 16), (3, 3, 3, 5, 17)]
+          (2, 5, 7, 16, 17), (1, 3, 4, 17, 65), (1, 4, 3, 65, 16), (3, 3, 3, 5, 17),
+          (1, 3, 200, 8, 8), (2, 7, 7, 16, 3)]
 
 
 def _inputs(b, h, w, c, o, seed=0):

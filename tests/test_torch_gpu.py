@@ -243,7 +243,16 @@ CONV_SHAPES = [(3, 5, 7, 3, 8), (2, 9, 6, 20, 24), (2, 4, 4, 20, 24), (5, 3, 3, 
                # of no whole 16-byte chunks (C 5), images smaller than a 16-pixel
                # mma tile (3 x 3, 1 x 1), a 128-pixel step spanning nine images
                (2, 5, 7, 16, 17), (1, 3, 4, 17, 65), (1, 4, 3, 65, 16), (3, 3, 3, 5, 17),
-               (40, 1, 1, 8, 8), (9, 4, 4, 32, 72)]
+               (40, 1, 1, 8, 8), (9, 4, 4, 32, 72),
+               # the bf16 forward's tile edges: M of 127, 128 and 129 pixels
+               # around its 128-pixel tile, a row wider than a tile,
+               # a tile spanning several images, the stem's dx (64 -> 3) at a
+               # small batch, C and O of 3, 8, 16, 17 and 65, and enough
+               # pixel tiles (O 520) for the 256-pixel blocks, also with rows
+               # of no whole 16-byte chunks (C 5)
+               (1, 1, 127, 16, 24), (2, 8, 8, 24, 16), (1, 3, 43, 17, 8), (1, 3, 200, 16, 16),
+               (3, 8, 8, 64, 64), (4, 32, 32, 64, 3), (2, 5, 6, 3, 65), (2, 6, 5, 65, 3),
+               (1, 9, 9, 8, 17), (2, 7, 3, 17, 8), (1, 65, 65, 8, 520), (1, 61, 61, 5, 520)]
 
 
 def _conv_inputs(cuda, shape, dtype):
@@ -281,6 +290,21 @@ def test_conv_dw_is_deterministic(cuda, shape):
     first, second = C.conv3x3_dw_cuda(x, go), C.conv3x3_dw_cuda(x, go)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 32, 64, 64), (16, 8, 8, 256, 256)])
+def test_conv_fwd_is_deterministic(cuda, shape):
+    """The bf16 forward twice on the same inputs at a main-path shape
+    (resnet18's first and third stage at B 16), for y and for dx on the
+    rotated taps: bitwise-equal results (one fixed sum order, no atomics)."""
+    from libcontinual_tpu_torch.ops import conv as C
+
+    x, k, go = _conv_inputs(cuda, shape, torch.bfloat16)
+    kr = C.rotate_taps(k).contiguous()
+    for inp, taps in ((x, k), (go, kr)):
+        first, second = C.conv3x3_cuda(inp, taps), C.conv3x3_cuda(inp, taps)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 def test_conv_autograd_launches_both_kernels(cuda):
