@@ -33,7 +33,8 @@ which raises on failure:
      bit for bit; the 3x3
      convolution kernels (y, dx through the forward kernel on the rotated
      taps, and dw) at small odd shapes (f32, bf16, C 3 and 20, a 4 x 4 image)
-     and at resnet18's CIFAR stem and four stages at B 128 (bf16);
+     and at resnet18's and cifar_resnet32's CIFAR stems and stages at B 128
+     (bf16);
   4. the slices: the port's ``Trainer`` (the code behind
      ``python -m libcontinual_tpu_torch``) runs L2P, DualPrompt, CODA-Prompt
      and DAP (on a long-tailed ``imb_type: exp`` stream) on a full-width
@@ -150,6 +151,10 @@ C_SMALL = [((3, 5, 7, 3, 8), torch.float32), ((3, 5, 7, 3, 8), torch.bfloat16),
 C_MAIN = [(128, 32, 32, 3, 64), (128, 32, 32, 64, 64), (128, 16, 16, 128, 128),
           (128, 8, 8, 256, 256), (128, 4, 4, 512, 512)]
 C_TIMED = C_MAIN[1]  # the first stage: the conv kernels' numbers in the kernels line
+# cifar_resnet32's stride-1 3x3 convolutions at batch 128 (bf16): the stem and
+# its three stages (16, 32, 64 channels at 32, 16, 8 px), the WA path's
+C_CIFAR32 = [(128, 32, 32, 3, 16), (128, 32, 32, 16, 16), (128, 16, 16, 32, 32),
+             (128, 8, 8, 64, 64)]
 # the trained iCaRL network's captured batch through conv3x3 against the
 # modules' own cuDNN results: both bf16 from f32 sums in another order (dw:
 # f32 against cuDNN's bf16), relative L2
@@ -316,6 +321,50 @@ ICARL_CONFIG = {
     "lr_scheduler": {"name": "Constant"}, "warmup": 0,
 }
 RESNET18_CIFAR_PARAMS = 11_168_832  # backbone parameters at 64-512 channels
+
+# the classic ResNet methods, each at its shipped config's backbone and
+# settings (configs/ewc.yaml, lwf.yaml, wa.yaml, lucir.yaml, der.yaml and
+# zz_BIC/bic-resnet32-cifar100-b10-10-10.yaml, as dicts) at full width from
+# random init, cut to: bf16, batch 128, 2 tasks of 10 synthetic classes at 60
+# images a class stored at 32 px (the CIFAR stem), 1 epoch a task, a buffer
+# of 200, BiC's stage2_epoch 2
+_SGD = {"name": "SGD", "kwargs": {"lr": 0.1, "momentum": 0.9, "weight_decay": 0.0005}}
+_MILESTONES = {"name": "MultiStepLR", "kwargs": {"gamma": 0.1, "milestones": [60, 120, 170]}}
+_HERD200 = {"name": "LinearHerdingBuffer", "kwargs": {"buffer_size": 200, "batch_size": 128}}
+_BIC_NORM = {"mean": [0.5071, 0.4866, 0.4409], "std": [0.2673, 0.2564, 0.2762]}
+CLASSIC_COMMON = {
+    "dataset": "synthetic", "data_root": "", "image_size": 32,
+    "task_num": 2, "init_cls_num": 10, "inc_cls_num": 10,
+    "epoch": 1, "batch_size": 128, "per_class": 60, "seed": 1993,
+    "val_per_epoch": 0, "testing_times": 1, "dtype": "bfloat16", "warmup": 0,
+    "mesh": {"data": 1, "model": 1},
+    "train_trfms": ICARL_CONFIG["train_trfms"], "test_trfms": ICARL_CONFIG["test_trfms"],
+    "optimizer": _SGD, "lr_scheduler": _MILESTONES,
+}
+CLASSIC_CONFIGS = {
+    "EWC": {"backbone": "resnet34", "kwargs": {"lamda": 1000}},
+    "LWF": {"backbone": "resnet18", "kwargs": {"lamda": 3},
+            "lr_scheduler": {"name": "StepLR", "kwargs": {"gamma": 0.1, "step_size": 45}}},
+    "WA": {"backbone": "cifar_resnet32", "buffer": _HERD200},
+    "LUCIR": {"backbone": "cifar_resnet32_lucir", "buffer": _HERD200,
+              "kwargs": {"dist": 0.5, "lamda": 5, "K": 2, "lw_mr": 1}},
+    "bic": {"backbone": "cifar_resnet32_V2", "stage2_epoch": 2,
+            "optimizer": {"name": "SGD", "kwargs": {"lr": 0.1, "momentum": 0.9,
+                                                    "weight_decay": 0.0002}},
+            "lr_scheduler": {"name": "MultiStepLR",
+                             "kwargs": {"gamma": 0.1, "milestones": [100, 150, 200]}},
+            "buffer": {"name": "LinearSpiltBuffer", "kwargs": {
+                "buffer_size": 200, "batch_size": 128, "strategy": "balance_random",
+                "val_ratio": 0.1}},
+            "train_trfms": [{"RandomHorizontalFlip": {}},
+                            {"RandomCrop": {"size": 32, "padding": 4}},
+                            {"Normalize": _BIC_NORM}],
+            "test_trfms": [{"Normalize": _BIC_NORM}]},
+    "DER": {"backbone": "resnet18", "buffer": _HERD200},
+}
+CLASSIC_CUTS = ("bf16, batch 128, 2 tasks of 10 synthetic classes (60 images a class, 32 px, "
+                "the CIFAR stem), 1 epoch a task, buffer 200 (EWC and LwF: none, they do not "
+                "replay), BiC's stage2_epoch 2")
 
 
 def _err(out: torch.Tensor, ref: torch.Tensor):
@@ -732,7 +781,7 @@ def phase_conv_checks(dev, errs, checked):
     the backward computes it) and dw (f32); adds the ``_shape_key`` of each
     checked launch to ``checked``."""
     C = _conv_module()
-    cases = C_SMALL + [(shape, torch.bfloat16) for shape in C_MAIN]
+    cases = C_SMALL + [(shape, torch.bfloat16) for shape in C_MAIN + C_CIFAR32]
     for i, (shape, dtype) in enumerate(cases):
         x, k, go = _conv_inputs(shape, dtype, dev, seed=300 + i)
         kr = C.rotate_taps(k).contiguous()
@@ -749,7 +798,7 @@ def phase_conv_checks(dev, errs, checked):
             f"{n} {a:.3e} ({r:.3e}, tolerance {tol[n]:.1e})" for n, (a, r) in got.items()))
         for n, (_, r) in got.items():
             _require(dw.dtype == torch.float32 and r <= tol[n], f"conv kernel {n} disagrees at {tag}")
-        if shape in C_MAIN:
+        if shape in C_MAIN + C_CIFAR32:
             errs["conv3x3_fwd"] = max(errs["conv3x3_fwd"], got["y"][0], got["dx"][0])
             errs["conv3x3_dw"] = max(errs["conv3x3_dw"], got["dw"][0])
 
@@ -1246,18 +1295,20 @@ def _rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def phase_icarl_conv_path(trainer, dev, seen):
-    """One training batch of 128 through the trained iCaRL network's loss
-    (CE and KD at task 1): hooks capture the input and the output gradient
-    of each of its 14 stride-1 3x3 convolutions. ``conv3x3`` (forward, and
-    backward through autograd: the forward kernel for dx, the dw kernel)
-    then recomputes y, dx and dw of each; they agree with the modules' own
-    cuDNN results. Returns this run's launch counts: exactly 2 forward-kernel
-    launches and 1 dw launch a convolution."""
+def phase_icarl_conv_path(trainer, dev, seen, net="resnet18", n_convs=14):
+    """One training batch of 128 through a trained network's loss (iCaRL's
+    resnet18, WA's cifar_resnet32; CE and KD at task 1): hooks capture the
+    input and the output gradient of each of its ``n_convs`` stride-1 3x3
+    convolutions. ``conv3x3`` (forward, and backward through autograd: the
+    forward kernel for dx, the dw kernel) then recomputes y, dx and dw of
+    each; they agree with the modules' own cuDNN results. Returns this run's
+    launch counts: exactly 2 forward-kernel launches and 1 dw launch a
+    convolution."""
     C = _conv_module()
     state, method = trainer.state, trainer.method
     convs = _stride1_3x3_convs(state.params["backbone"])
-    _require(len(convs) == 14, f"resnet18 has {len(convs)} stride-1 3x3 convolutions, not 14")
+    _require(len(convs) == n_convs,
+             f"{net} has {len(convs)} stride-1 3x3 convolutions, not {n_convs}")
     td = trainer.train_stream.task(state.task)
     batch = {"image": torch.from_numpy(td.images[:128]).to(dev),
              "label": torch.from_numpy(td.labels[:128].astype(np.int64)).to(dev),
@@ -1290,9 +1341,9 @@ def phase_icarl_conv_path(trainer, dev, seen):
             outs.append((y.detach(), x.grad, w.grad))
     torch.cuda.synchronize()
     launches = _launches()
-    print(f"[conv path] launches for the 14 convolutions: {launches}")
-    _require(launches["conv3x3_fwd"] == 28 and launches["conv3x3_dw"] == 14
-             and sum(launches.values()) == 42, f"conv path launched {launches}")
+    print(f"[conv path] {net}: launches for the {n_convs} convolutions: {launches}")
+    _require(launches["conv3x3_fwd"] == 2 * n_convs and launches["conv3x3_dw"] == n_convs
+             and sum(launches.values()) == 3 * n_convs, f"conv path launched {launches}")
 
     worst = {"y": 0.0, "dx": 0.0, "dw": 0.0}
     for (name, mod), (y, dx, dw) in zip(convs, outs):
@@ -1304,14 +1355,160 @@ def phase_icarl_conv_path(trainer, dev, seen):
         err = {"y": _rel_l2(y, nhwc(cap["y"])), "dx": _rel_l2(dx, nhwc(dx_ref)),
                "dw": _rel_l2(dw, dw_ref.permute(2, 3, 1, 0))}
         b, h, w_, c = cap["x"].shape[0], *cap["x"].shape[2:], cap["x"].shape[1]
-        print(f"[conv path] {name} ({b}x{h}x{w_}x{c} -> {mod.weight.shape[0]}): relative L2 "
+        print(f"[conv path] {net} {name} ({b}x{h}x{w_}x{c} -> {mod.weight.shape[0]}): relative L2 "
               f"against cuDNN y {err['y']:.3e}, dx {err['dx']:.3e}, dw {err['dw']:.3e} "
               f"(tolerance {CONV_PATH_TOL})")
         for k, v in err.items():
             worst[k] = max(worst[k], v)
             _require(np.isfinite(v) and v <= CONV_PATH_TOL, f"conv path {name}: {k} disagrees")
-    print(f"[conv path] worst relative L2 over the 14 convolutions: {worst}")
+    print(f"[conv path] {net}: worst relative L2 over the {n_convs} convolutions: {worst}")
     return launches
+
+
+def _classic_config(name):
+    node = CLASSIC_CONFIGS[name]
+    cfg = copy.deepcopy(CLASSIC_COMMON)
+    cfg.update({k: copy.deepcopy(v) for k, v in node.items()
+                if k not in ("backbone", "kwargs")})
+    cfg["backbone"] = {"name": node["backbone"], "kwargs": {"args": {"dataset": "cifar100"}}}
+    cfg["classifier"] = {"name": name, "kwargs": {
+        "num_class": 20, "init_cls_num": 10, "inc_cls_num": 10, "task_num": 2,
+        **node.get("kwargs", {})}}
+    return cfg
+
+
+def _step_rate(method, state, batch, lr, n_steps=20, warmup=3):
+    for _ in range(warmup):
+        method.train_step(state, batch, lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        method.train_step(state, batch, lr)
+    torch.cuda.synchronize()
+    return n_steps * batch["image"].shape[0] / (time.perf_counter() - t0)
+
+
+def phase_classic_methods(dev, card):
+    """EWC, LwF, WA, LUCIR, BiC and DER through the port's trainer on the card
+    (``CLASSIC_CONFIGS``, cut as ``CLASSIC_CUTS`` says): finite losses, moved
+    parameters, the acc table filled, LUCIR's old head rows and DER's
+    extractor 0 bitwise unchanged through task 1, BiC's task-1 alpha and beta
+    moved by stage 2, and no kernel of the port launched (the ResNets'
+    convolutions are cuDNN's); then each method's task-1 train step, 20 steps
+    after 3 warm-up steps on one batch of 128. Returns the trained WA trainer
+    (its cifar_resnet32 feeds the conv-kernel path) and {method: img/s}."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.core.trainer import Trainer
+
+    print(f"[classic] cuts: {CLASSIC_CUTS}")
+    rates, wa = {}, None
+    for name in CLASSIC_CONFIGS:
+        trainer = Trainer(Config(overrides=_classic_config(name)).get_config_dict(), device=dev)
+        method = trainer.method
+        params0 = {k: v.clone() for k, v in trainer.state.params.state_dict().items()}
+        losses, frozen, checked = [], {}, []
+        before = method.before_task
+
+        def at_task_start(state, task_idx, task_data, before=before, frozen=frozen):
+            state = before(state, task_idx, task_data)
+            if task_idx == 1 and name == "LUCIR":
+                frozen["old rows"] = state.params["head"].weight[:10].detach().clone()
+            if task_idx == 1 and name == "DER":
+                frozen.update({k: v.clone() for k, v in
+                               state.params["backbone"][0].state_dict().items()})
+            return state
+        method.before_task = at_task_start
+
+        def epoch_end(t, e, state, step_losses, frozen=frozen, checked=checked):
+            losses.append(np.asarray(step_losses))
+            if t == 1 and name == "LUCIR":
+                checked.append(torch.equal(state.params["head"].weight[:10], frozen["old rows"]))
+            if t == 1 and name == "DER":
+                now = state.params["backbone"][0].state_dict()
+                checked.append(all(torch.equal(v, now[k]) for k, v in frozen.items()))
+        trainer.epoch_hook = epoch_end
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = trainer.train_loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        state, table = trainer.state, res["acc_table"]
+        n_bb = sum(p.numel() for p in state.params["backbone"].parameters())
+        print(f"[classic {name}] {trainer.config['backbone']['name']} ({n_bb} backbone "
+              f"parameters), steps {[len(x) for x in losses]} in {wall:.1f} s, losses "
+              f"{np.concatenate(losses).round(4).tolist()}")
+        print(f"[classic {name}] acc table {table.tolist()}, last avg acc {res['last_avg_acc']}"
+              + (f", buffer {len(trainer.buffer)}" if method.concat_buffer else ""))
+        _require(all(np.isfinite(x).all() for x in losses), f"{name}: non-finite loss")
+        _require(table.shape == (2, 2) and np.isfinite(table).all(), f"{name}: acc table not filled")
+        params1 = state.params.state_dict()
+        moved = [k for k in ("head.dense.weight", "head.weight") if k in params0]
+        moved += [next(k for k in params0 if k.endswith("conv_stem.weight"))]
+        for pname in moved:
+            _require(not torch.equal(params0[pname], params1[pname]), f"{name}: {pname} did not move")
+        _require(not any(launches.values()), f"{name}: the ResNet launched a kernel: {launches}")
+        if name in ("LUCIR", "DER"):
+            what = "old head rows" if name == "LUCIR" else "extractor 0 (parameters and statistics)"
+            print(f"[classic {name}] {what} bitwise unchanged through task 1: {checked}")
+            _require(checked == [True], f"{name}: the frozen {what} moved")
+        if name == "DER":
+            _require(state.mvars["n_active"] == 2 and len(state.params["backbone"]) == 2,
+                     "DER: not 2 extractors")
+        if name == "bic":
+            a, b = float(state.mvars["alphas"][1]), float(state.mvars["betas"][1])
+            s2 = method.stage2_losses
+            print(f"[classic bic] stage 2: {len(s2)} steps, losses {np.round(s2, 4).tolist()}, "
+                  f"alpha_1 {a:.6f}, beta_1 {b:.6f}")
+            _require(a != 1.0 and b != 0.0 and np.isfinite(s2).all(),
+                     "bic: stage 2 did not move alpha and beta")
+        if name == "EWC":
+            f = sum(float(v.sum()) for v in state.mvars["fisher"].values())
+            _require(np.isfinite(f) and f > 0, "EWC: no Fisher")
+        td = trainer.train_stream.task(1)
+        batch = {"image": torch.from_numpy(td.images[:128]).to(dev),
+                 "label": torch.from_numpy(td.labels[:128].astype(np.int64)).to(dev),
+                 "weight": torch.ones(128, device=dev)}
+        rates[name] = _step_rate(method, state, batch, 0.01)
+        if name == "WA":
+            wa = trainer  # the conv path runs on its trained network
+        del trainer, state
+        torch.cuda.empty_cache()
+    print(f"[timing] classic methods' task-1 train steps (bf16, batch 128, 32 px): " + ", ".join(
+        f"{n} {r:.2f} img/s" for n, r in rates.items()) + f" [{card}]")
+    return wa, rates
+
+
+def phase_backbone_steps(dev, card):
+    """One Finetune train step each of resnet50 and resnet18_cbam (the CIFAR
+    stem, batch 128, 32 px): a finite loss and a moved stem."""
+    import libcontinual_tpu_torch.methods  # noqa: F401  (registers the methods)
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.registry import METHODS
+
+    rng = np.random.RandomState(0)
+    batch = {"image": torch.from_numpy(rng.randint(0, 255, (128, 32, 32, 3)).astype(np.uint8)).to(dev),
+             "label": torch.from_numpy(rng.randint(0, 10, (128,))).to(dev),
+             "weight": torch.ones(128, device=dev)}
+    for bb in ("resnet50", "resnet18_cbam"):
+        cfg = _classic_config("WA")
+        cfg["backbone"]["name"] = bb
+        cfg["classifier"]["name"] = "Finetune"
+        cfg = Config(overrides=cfg).get_config_dict()
+        method = METHODS.get("Finetune")(cfg, dev)
+        state = method.init_state(1993, (32, 32, 3))
+        stem = next(v for k, v in state.params.state_dict().items() if k.endswith("stem.weight"))
+        stem0 = stem.clone()
+        state, m = method.train_step(state, batch, 0.1)
+        torch.cuda.synchronize()
+        loss = float(m["loss"])
+        feats = method.feat_dim
+        print(f"[backbone {bb}] one train step at batch 128, 32 px: loss {loss:.4f}, "
+              f"{sum(p.numel() for p in state.params['backbone'].parameters())} parameters, "
+              f"{feats}-d features, dtype {state.params['backbone'].dtype} [{card}]")
+        _require(np.isfinite(loss) and not torch.equal(stem0, stem), f"{bb}: step failed")
+        del method, state
+        torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1791,8 +1988,8 @@ def _conv_bounds(b, h, w, c, o):
 
 
 def phase_conv_timing(dev, card):
-    """The conv kernels at the stem and the four stages (bf16, B 128),
-    beside their plain versions and cuDNN (``F.conv2d`` on ``channels_last``
+    """The conv kernels at resnet18's stem and four stages and at
+    cifar_resnet32's stem and three stages (bf16, B 128), beside their plain versions and cuDNN (``F.conv2d`` on ``channels_last``
     and its data and weight gradients through ``aten.convolution_backward``;
     the port never calls them): y, dx (the forward kernel on the output
     gradient and the rotated taps, bound by ``_conv_bounds`` with C and O
@@ -1800,7 +1997,7 @@ def phase_conv_timing(dev, card):
     bound, dx times, dx bound)}."""
     C = _conv_module()
     out = {}
-    for shape in C_MAIN:
+    for shape in C_MAIN + C_CIFAR32:
         b, h, w, c, o = shape
         x, k, go = _conv_inputs(shape, torch.bfloat16, dev, seed=9)
         xc, gc = x.permute(0, 3, 1, 2), go.permute(0, 3, 1, 2)  # NCHW views of NHWC memory
@@ -2038,6 +2235,14 @@ def main() -> int:
     launches["iCaRL_resnet18 conv3x3"] = phase_icarl_conv_path(trainer, dev, seen)
     del trainer
     torch.cuda.empty_cache()
+    t_classic = time.perf_counter()
+    trainer, _ = phase_classic_methods(dev, card)
+    launches["WA_cifar_resnet32 conv3x3"] = phase_icarl_conv_path(
+        trainer, dev, seen, net="cifar_resnet32", n_convs=29)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_backbone_steps(dev, card)
+    print(f"[env] the classic ResNet phases in {time.perf_counter() - t_classic:.1f} s")
     t_gen = time.perf_counter()
     launches[GENERIC_PATH] = phase_generic_path(captures, dev, seen)
     del captures

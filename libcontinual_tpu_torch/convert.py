@@ -12,12 +12,19 @@ Layout maps (the inverse of ``_load_timm_torch_into`` in
   * DualPrompt's, CODA-Prompt's and DAP's ``{"head": {"Dense_0": ...},
     "prompt": {name: array}}``, name for name into the method's
     ``nn.ParameterDict``;
-  * a ResNet's ``conv_stem`` / ``bn_stem`` and ``BasicBlock_{i}`` subtrees
-    (``Conv_0``, ``BatchNorm_0``, ``Conv_1``, ``BatchNorm_1`` and, where the
-    shapes change, ``downsample`` / ``downsample_bn``), the BatchNorm
-    ``scale`` / ``bias`` with the ``batch_stats`` ``mean`` / ``var`` as the
-    running buffers; the rehearsal methods' ``{"backbone", "head"}`` tree,
-    iCaRL's teacher and class means;
+  * a ResNet's ``conv_stem`` / ``bn_stem`` and ``BasicBlock_{i}`` /
+    ``Bottleneck_{i}`` subtrees (``Conv_{j}``, ``BatchNorm_{j}`` and, where
+    the shapes change, ``downsample`` / ``downsample_bn``), the
+    pre-activation ResNet's ``PreActBasicBlock_{i}`` (a bare ``downsample``
+    conv) and ``bn_final``, CBAM's ``Conv_0`` / ``BatchNorm_0`` stem and
+    ``CBAMBasicBlock_{i}`` (``ChannelGate_0``'s two Dense layers,
+    ``SpatialGate_0``, the ``Conv_2`` / ``BatchNorm_2`` shortcut), TinyCNN's
+    two conv / BatchNorm pairs; the BatchNorm ``scale`` / ``bias`` with the
+    ``batch_stats`` ``mean`` / ``var`` as the running buffers;
+  * the ResNet methods' ``{"backbone", "head"}`` tree (``head`` a Dense or
+    LUCIR's cosine ``kernel`` and ``sigma``; DER's ``backbone`` leaves stacked
+    on a leading ``task_num`` axis, one slice per extractor, and its ``aux``
+    head) and their ``mvars`` (:func:`resnet_state_from_flax`);
   * the CLIP tree (both towers, ``ln_pre_n``, ``token_embedding``,
     ``pos_embed``, both projections, ``logit_scale``) and the MoE leaves
     (``w_gate``, ``w_noise``, ``down``, ``down_b``, ``up``, ``up_b``) as they
@@ -30,7 +37,8 @@ its own dtype and device.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import copy
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -71,53 +79,155 @@ def load_batch_norm(bn: nn.Module, p: Tree, stats: Tree, name: str = "bn") -> No
     _put(bn.running_var, _tensor(stats["var"]), f"{name}.var")
 
 
+def _load_bn_pair(conv, bn, p: Tree, stats: Tree, conv_name: str, bn_name: str,
+                  prefix: str) -> None:
+    load_conv(conv, p[conv_name], f"{prefix}.{conv_name}")
+    load_batch_norm(bn, p[bn_name], stats[bn_name], f"{prefix}.{bn_name}")
+
+
+def _load_downsample(blk, b: Tree, st: Tree, name: str, conv_name: str = "downsample",
+                     bn_name: Optional[str] = "downsample_bn") -> None:
+    if (conv_name in b) != (blk.downsample is not None):
+        raise ValueError(f"{name}: downsample on one side only")
+    if blk.downsample is None:
+        return
+    load_conv(blk.downsample, b[conv_name], f"{name}.{conv_name}")
+    if bn_name is not None:
+        load_batch_norm(blk.downsample_bn, b[bn_name], st[bn_name], f"{name}.{bn_name}")
+
+
+def _load_block(blk, b: Tree, st: Tree, name: str) -> None:
+    """One ``BasicBlock`` / ``Bottleneck`` / ``PreActBasicBlock`` /
+    ``CBAMBasicBlock`` subtree."""
+    from libcontinual_tpu_torch.models.cbam import CBAMBasicBlock
+    from libcontinual_tpu_torch.models.resnet import PreActBasicBlock
+
+    n_conv = 3 if hasattr(blk, "conv2") else 2
+    for i in range(n_conv):
+        _load_bn_pair(getattr(blk, f"conv{i}"), getattr(blk, f"bn{i}"), b, st, f"Conv_{i}",
+                      f"BatchNorm_{i}", name)
+    if isinstance(blk, PreActBasicBlock):  # a bare conv shortcut
+        _load_downsample(blk, b, st, name, bn_name=None)
+    elif isinstance(blk, CBAMBasicBlock):
+        gate = b["ChannelGate_0"]
+        load_dense(blk.channel_gate.fc0, gate["Dense_0"], f"{name}.ChannelGate_0.Dense_0")
+        load_dense(blk.channel_gate.fc1, gate["Dense_1"], f"{name}.ChannelGate_0.Dense_1")
+        _load_bn_pair(blk.spatial_gate.conv, blk.spatial_gate.bn, b["SpatialGate_0"],
+                      st["SpatialGate_0"], "Conv_0", "BatchNorm_0", f"{name}.SpatialGate_0")
+        _load_downsample(blk, b, st, name, "Conv_2", "BatchNorm_2")
+    else:
+        _load_downsample(blk, b, st, name)
+
+
 def load_resnet(resnet: nn.Module, p: Tree, stats: Tree) -> None:
-    """A flax ``ResNet`` / ``CifarResNet`` (``params`` and ``batch_stats``)
-    into a port ``ResNet``."""
-    load_conv(resnet.conv_stem, p["conv_stem"], "conv_stem")
-    load_batch_norm(resnet.bn_stem, p["bn_stem"], stats["bn_stem"], "bn_stem")
-    n_blocks = len([k for k in p if k.startswith("BasicBlock_")])
+    """A flax ``ResNet`` / ``CifarResNet`` / ``PreActCifarResNet`` /
+    ``CBAMResNet`` / ``TinyCNN`` (``params`` and ``batch_stats``) into the
+    port's module of the same name."""
+    from libcontinual_tpu_torch.models.cbam import CBAMResNet
+    from libcontinual_tpu_torch.models.resnet import PreActCifarResNet, TinyCNN
+
+    if isinstance(resnet, TinyCNN):
+        for i in range(2):
+            _load_bn_pair(getattr(resnet, f"conv{i}"), getattr(resnet, f"bn{i}"), p, stats,
+                          f"Conv_{i}", f"BatchNorm_{i}", "TinyCNN")
+        return
+    if isinstance(resnet, CBAMResNet):
+        _load_bn_pair(resnet.conv_stem, resnet.bn_stem, p, stats, "Conv_0", "BatchNorm_0", "stem")
+        prefix = "CBAMBasicBlock_"
+    elif isinstance(resnet, PreActCifarResNet):
+        load_conv(resnet.conv_stem, p["conv_stem"], "conv_stem")
+        load_batch_norm(resnet.bn_final, p["bn_final"], stats["bn_final"], "bn_final")
+        prefix = "PreActBasicBlock_"
+    else:
+        _load_bn_pair(resnet.conv_stem, resnet.bn_stem, p, stats, "conv_stem", "bn_stem", "stem")
+        prefix = "Bottleneck_" if hasattr(resnet.blocks[0], "conv2") else "BasicBlock_"
+    n_blocks = len([k for k in p if k.startswith(prefix)])
     if n_blocks != len(resnet.blocks):
         raise ValueError(f"{n_blocks} blocks in the source, {len(resnet.blocks)} in the module")
     for i, blk in enumerate(resnet.blocks):
-        name = f"BasicBlock_{i}"
-        b, st = p[name], stats[name]
-        load_conv(blk.conv0, b["Conv_0"], f"{name}.Conv_0")
-        load_batch_norm(blk.bn0, b["BatchNorm_0"], st["BatchNorm_0"], f"{name}.BatchNorm_0")
-        load_conv(blk.conv1, b["Conv_1"], f"{name}.Conv_1")
-        load_batch_norm(blk.bn1, b["BatchNorm_1"], st["BatchNorm_1"], f"{name}.BatchNorm_1")
-        if ("downsample" in b) != (blk.downsample is not None):
-            raise ValueError(f"{name}: downsample on one side only")
-        if blk.downsample is not None:
-            load_conv(blk.downsample, b["downsample"], f"{name}.downsample")
-            load_batch_norm(blk.downsample_bn, b["downsample_bn"], st["downsample_bn"],
-                            f"{name}.downsample_bn")
+        _load_block(blk, p[f"{prefix}{i}"], stats[f"{prefix}{i}"], f"{prefix}{i}")
+
+
+def load_head(head: nn.Module, p: Tree, name: str = "head") -> None:
+    """A ``LinearHead`` (``Dense_0``) or a ``CosineLinear`` (``kernel``,
+    ``sigma``)."""
+    if "Dense_0" in p:
+        load_dense(head.dense, p["Dense_0"], f"{name}.Dense_0")
+        return
+    _put(head.weight, _tensor(p["kernel"]).T, f"{name}.kernel")
+    _put(head.sigma, _tensor(p["sigma"]), f"{name}.sigma")
+
+
+def _task_slice(tree: Tree, i: int) -> Tree:
+    """Entry ``i`` of every leaf of a stacked tree (DER's extractors)."""
+    return {k: _task_slice(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+            for k, v in tree.items()}
 
 
 def load_backbone_params(modules: nn.ModuleDict, p: Tree, batch_stats: Tree) -> None:
-    """A rehearsal method's ``{"backbone", "head"}`` tree and its backbone's
-    ``batch_stats`` into the port's ``{"backbone", "head"}`` modules."""
-    load_resnet(modules["backbone"], p["backbone"], batch_stats)
-    load_dense(modules["head"].dense, p["head"]["Dense_0"], "head.Dense_0")
+    """A ResNet method's ``{"backbone", "head"[, "aux"]}`` tree and its
+    backbone's ``batch_stats`` into the port's modules; a ``ModuleList`` of
+    backbones (DER) takes a tree whose leaves stack the extractors on a
+    leading axis."""
+    bb = modules["backbone"]
+    if isinstance(bb, nn.ModuleList):
+        for i, m in enumerate(bb):
+            load_resnet(m, _task_slice(p["backbone"], i), _task_slice(batch_stats, i))
+    else:
+        load_resnet(bb, p["backbone"], batch_stats)
+    for name in ("head", "aux"):
+        if name in modules:
+            load_head(modules[name], p[name], name)
 
 
-def resnet_state_from_flax(method, params: Tree, mvars: Tree, seed: int = 0):
-    """A port ``TrainState`` for a method on a ResNet (Finetune, iCaRL)
-    holding the JAX state's weights: ``params`` is ``state.params`` and
-    ``mvars`` is ``state.mvars``, both as numpy trees. iCaRL's teacher, class
-    means and their flags come along."""
-    from libcontinual_tpu_torch.models import get_backbone
-    from libcontinual_tpu_torch.models.heads import LinearHead
+def named_like(params: nn.ModuleDict, tree: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """A flax-shaped tree of per-parameter values (EWC's Fisher and
+    reference parameters) as a dict keyed by the port's parameter names."""
+    scratch = copy.deepcopy(params)
+    load_backbone_params(scratch, tree, batch_stats)
+    return {n: t.detach() for n, t in scratch.named_parameters()}
 
-    state = method.backbone_state(
-        get_backbone(method.config), LinearHead(method.feat_dim, method.num_class), seed)
-    load_backbone_params(state.params, params, mvars["model_state"]["batch_stats"])
+
+def load_method_state(method, state, params: Tree, mvars: Tree) -> None:
+    """The JAX state of a method on a ResNet into an existing port state, in
+    place (the optimizer keeps its ``Parameter`` objects and its momentum):
+    ``params`` is ``state.params`` and ``mvars`` is ``state.mvars``, both as
+    numpy trees. What a method keeps in ``mvars`` comes along: iCaRL's
+    teacher, class means and their flags, the teachers of LwF, WA, LUCIR and
+    BiC, EWC's Fisher and reference parameters, BiC's alphas, betas and
+    decay, LUCIR's ``cur_lamda`` and ``head_col_mask``, and DER's active
+    count (a new count rebuilds the optimizer over the newest extractor)."""
+    stats = mvars["model_state"]["batch_stats"]
+    load_backbone_params(state.params, params, stats)
     mv, dev = state.mvars, method.device
     if "teacher" in mv:
         load_backbone_params(mv["teacher"], mvars["teacher"], mvars["teacher_state"]["batch_stats"])
+    if "class_means" in mv:
         mv["class_means"] = _tensor(mvars["class_means"]).to(dev)
         mv["mean_valid"] = _tensor(mvars["mean_valid"]).to(dev)
         mv["nme_ready"] = bool(np.asarray(mvars["nme_ready"]) > 0)
+    for key in ("fisher", "ref_params"):
+        if key in mv:
+            mv[key] = {k: v.to(dev) for k, v in
+                       named_like(state.params, mvars[key], stats).items()}
+    for key in ("alphas", "betas", "head_col_mask"):
+        if key in mv:
+            mv[key] = _tensor(mvars[key]).to(dev)
+    for key in ("wd", "cur_lamda"):
+        if key in mv:
+            mv[key] = float(np.asarray(mvars[key]))
+    if "n_active" in mv:
+        n = int(np.asarray(mvars["active"]).sum())
+        if n != mv["n_active"]:
+            mv["n_active"] = n
+            state.opt_state = method._tx_for_task(state.task, method.trainable_parameters(state))
+
+
+def resnet_state_from_flax(method, params: Tree, mvars: Tree, seed: int = 0):
+    """A port ``TrainState`` for a method on a ResNet holding the JAX state's
+    weights and method variables (:func:`load_method_state`)."""
+    state = method.init_state(seed, (8, 8, 3))
+    load_method_state(method, state, params, mvars)
     return state
 
 

@@ -9,6 +9,14 @@ update (with the learning rate passed in per step) and ``eval_step`` for
 predictions. The state it works on is a
 :class:`~libcontinual_tpu_torch.core.state.TrainState`.
 
+The seams of one update, in ``train_step``'s order: ``transform_grads``
+edits the gradients, ``trainable_mask`` zeroes the frozen entries' gradients
+and, after ``opt.step()``, restores their values (so the optimizer's own
+weight decay cannot move them either), and ``post_update`` sees the new
+state. ``_tx_for_task`` chooses a task's optimizer and
+``trainable_parameters`` the parameters it covers (the optimizer is rebuilt
+every task).
+
 The defaults are the JAX base class's, Finetune's semantics: a backbone with
 running statistics (``params["backbone"]``, its BatchNorm statistics as
 module buffers) and a linear head (``params["head"]``), plain CE on the full
@@ -154,9 +162,12 @@ class Method:
         return {}
 
     def trainable_parameters(self, state: TrainState):
+        """The parameters the task's optimizer covers."""
         return [p for p in state.params.parameters() if p.requires_grad]
 
     def _tx_for_task(self, task_idx: int, params) -> torch.optim.Optimizer:
+        """The optimizer of task ``task_idx`` over ``params``: the config's
+        (``init_optimizer`` at task 0 where there is one)."""
         key = "init_optimizer" if task_idx == 0 and "init_optimizer" in self.config else "optimizer"
         node = self.config[key]
         return make_optimizer(node["name"], node.get("kwargs") or {}, params)
@@ -234,6 +245,30 @@ class Method:
     def transform_grads(self, state: TrainState) -> None:
         """Edit the gradients in place after the backward pass."""
 
+    def trainable_mask(self, state: TrainState) -> Optional[Dict[nn.Parameter, torch.Tensor]]:
+        """0/1 masks, broadcastable to their parameters, of the entries an
+        update may change, or None for all of them."""
+        return None
+
+    def post_update(self, state: TrainState, batch, aux) -> TrainState:
+        """After the optimizer step. The running statistics need nothing
+        here: the train-mode forward updated them in place."""
+        return state
+
+    def class_range(self, task_id: int) -> Tuple[int, int]:
+        """[lo, hi) of task ``task_id``'s classes."""
+        lo = 0 if task_id == 0 else self.init_cls_num + (task_id - 1) * self.inc_cls_num
+        return lo, lo + (self.init_cls_num if task_id == 0 else self.inc_cls_num)
+
+    def task_range_mask(self, task_id: int) -> torch.Tensor:
+        """(num_class,) f32 mask of task ``task_id``'s classes; -1 gives every
+        class."""
+        if task_id < 0:
+            return torch.ones(self.num_class, device=self.device)
+        lo, hi = self.class_range(task_id)
+        idx = torch.arange(self.num_class, device=self.device)
+        return ((idx >= lo) & (idx < hi)).float()
+
     def train_step(self, state: TrainState, batch, lr: float):
         batch = dict(batch)
         batch["x"] = self.augment(state.rng, batch["image"], train=True)
@@ -242,9 +277,22 @@ class Method:
         opt.zero_grad(set_to_none=True)
         loss.backward()
         self.transform_grads(state)
+        frozen = []
+        mask = self.trainable_mask(state)
+        if mask:
+            with torch.no_grad():
+                for p, m in mask.items():
+                    if p.grad is not None:
+                        p.grad.mul_(m)
+                    frozen.append((p, m > 0, p.detach().clone()))
         set_lr(opt, lr)
         opt.step()
+        if frozen:
+            with torch.no_grad():
+                for p, keep, before in frozen:
+                    p.copy_(torch.where(keep, p, before))
         state.step += 1
+        state = self.post_update(state, batch, aux)
         with torch.no_grad():
             acc = weighted_accuracy(aux["logits"], batch["label"], batch.get("weight"))
         return state, {"loss": loss.detach(), "acc": acc}

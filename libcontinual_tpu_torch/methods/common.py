@@ -2,11 +2,13 @@
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def kd_loss(pred_logits: torch.Tensor, soft_logits: torch.Tensor, T: float = 2.0,
@@ -29,6 +31,44 @@ def kd_loss(pred_logits: torch.Tensor, soft_logits: torch.Tensor, T: float = 2.0
     return torch.sum(per * weight) / torch.clamp(weight.sum(), min=1.0)
 
 
+def snapshot(params: nn.ModuleDict) -> nn.ModuleDict:
+    """A frozen copy of the modules, their running statistics included: a
+    distillation teacher."""
+    return copy.deepcopy(params).requires_grad_(False)
+
+
+def select_mask(task: int, task0_mask: torch.Tensor, later_mask: torch.Tensor) -> torch.Tensor:
+    """The class mask of task 0, or of every later task."""
+    return later_mask if task > 0 else task0_mask
+
+
+def masked_eval_logits(method, state, x) -> torch.Tensor:
+    """The method's logits with the classes not seen yet at -1e30: a head
+    grown per task could not pick them."""
+    logits = method.forward(state.params, x, train=False)[0]
+    return torch.where(state.seen_mask[None, :] > 0, logits, -1e30)
+
+
+def head_kernel(params) -> torch.Tensor:
+    """The linear head's weight, ``(num_class, in)``: one row per class (the
+    flax kernel's column)."""
+    return params["head"].dense.weight
+
+
+@torch.no_grad()
+def set_head_kernel(params, weight: torch.Tensor) -> None:
+    """Write the linear head's weight in place, so the optimizer keeps its
+    ``Parameter``."""
+    params["head"].dense.weight.copy_(weight)
+
+
+def zeros_like_tree(tree) -> Dict[str, torch.Tensor]:
+    """Zeros shaped like each named parameter of a module (or each tensor
+    of a dict): the per-parameter accumulators of EWC's Fisher."""
+    items = tree.named_parameters() if isinstance(tree, nn.Module) else tree.items()
+    return {k: torch.zeros_like(v) for k, v in items}
+
+
 def normalized(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + eps)
 
@@ -36,7 +76,7 @@ def normalized(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tens
 def copy_tree(tree) -> Dict[str, Any]:
     """A detached copy of a dict (or module dict) of tensors, nested dicts
     included: a snapshot that later in-place updates do not reach."""
-    return {k: copy_tree(v) if isinstance(v, (dict, torch.nn.Module)) else v.detach().clone()
+    return {k: copy_tree(v) if isinstance(v, (dict, nn.Module)) else v.detach().clone()
             for k, v in tree.items()}
 
 

@@ -18,19 +18,11 @@ the device, so an evaluation step does not wait on the host.
 
 from __future__ import annotations
 
-import copy
-
 import torch
-from torch import nn
 
 from libcontinual_tpu_torch.core.method import Method, masked_cross_entropy
-from libcontinual_tpu_torch.methods.common import batch_iter, kd_loss, normalized
+from libcontinual_tpu_torch.methods.common import batch_iter, kd_loss, normalized, snapshot
 from libcontinual_tpu_torch.registry import METHODS
-
-
-def snapshot(params: nn.ModuleDict) -> nn.ModuleDict:
-    """A frozen copy of the modules, their running statistics included."""
-    return copy.deepcopy(params).requires_grad_(False)
 
 
 @METHODS.register("ICarl")

@@ -1,5 +1,6 @@
-"""Classifier heads (``libcontinual_tpu/models/heads.py``). Heads are
-allocated at full ``num_class`` width and masked per task."""
+"""Classifier heads (``libcontinual_tpu/models/heads.py``): the linear head,
+LUCIR's cosine head and BiC's bias correction. Heads are allocated at full
+``num_class`` width and masked per task."""
 
 from __future__ import annotations
 
@@ -29,3 +30,37 @@ class LinearHead(nn.Module):
 
     def forward(self, feats):
         return F.linear(feats.float(), self.dense.weight.float(), self.dense.bias.float())
+
+
+class CosineLinear(nn.Module):
+    """LUCIR's cosine classifier: the cosine between the features and each
+    class's weight row, times a learnable scalar ``sigma`` (1 at init). The
+    weight is ``(num_class, in)`` and drawn from flax ``kaiming_uniform``;
+    both norms add ``eps`` (1e-12), as the JAX head does."""
+
+    def __init__(self, in_features: int, num_class: int,
+                 generator: Optional[torch.Generator] = None, eps: float = 1e-12):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(num_class, in_features))
+        self.sigma = nn.Parameter(torch.ones(()))
+        limit = math.sqrt(6.0 / in_features)
+        with torch.no_grad():
+            self.weight.uniform_(-limit, limit, generator=generator)
+
+    def scores(self, feats):
+        """The cosines before ``sigma``: ``(B, num_class)`` f32."""
+        f = feats.float()
+        f = f / (torch.linalg.vector_norm(f, dim=-1, keepdim=True) + self.eps)
+        w = self.weight / (torch.linalg.vector_norm(self.weight, dim=1, keepdim=True) + self.eps)
+        return f @ w.T
+
+    def forward(self, feats):
+        return self.scores(feats) * self.sigma
+
+
+def bias_correct(logits: torch.Tensor, alphas: torch.Tensor, betas: torch.Tensor,
+                 task_of_class: torch.Tensor) -> torch.Tensor:
+    """BiC's per-task bias layers: ``alpha_t * logit + beta_t`` for each class
+    of task t (``task_of_class`` maps a class to its task)."""
+    return logits * alphas[task_of_class] + betas[task_of_class]

@@ -33,6 +33,14 @@ MODULES = [
     "libcontinual_tpu_torch.models.resnet",
     "libcontinual_tpu_torch.methods.icarl",
     "libcontinual_tpu_torch.methods.finetune",
+    "libcontinual_tpu_torch.methods.ewc",
+    "libcontinual_tpu_torch.methods.lwf",
+    "libcontinual_tpu_torch.methods.wa",
+    "libcontinual_tpu_torch.methods.lucir",
+    "libcontinual_tpu_torch.methods.bic",
+    "libcontinual_tpu_torch.methods.der",
+    "libcontinual_tpu_torch.models.cbam",
+    "libcontinual_tpu_torch.models.heads",
     "libcontinual_tpu_torch.methods.prompt_methods",
     "libcontinual_tpu_torch.methods.dap",
     "libcontinual_tpu_torch.methods.clip_methods",
