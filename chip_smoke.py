@@ -50,7 +50,13 @@ which raises on failure:
      epochs, and on its trained network the inputs and output gradients of
      its 14 stride-1 3x3 convolutions on one batch of 128 go through
      ``conv3x3`` (the kernels), which must agree with the modules' own cuDNN
-     results (y, dx, dw);
+     results (y, dx, dw); then the online methods, ER-ACE, ER-AML (on
+     resnet18_AML, batch 10, buffer 1000), OCM (resnet18, batch 10, buffer
+     2000, replay 64) and PRAKA (resnet18, batch 128), at their shipped
+     configs' widths, 2 tasks and 1 epoch a task, with their buffers and
+     prototypes checked, and the trained ER-ACE resnet18_AML's 14 stride-1
+     3x3 convolutions (20, 40, 80 and 160 channels) through ``conv3x3`` as
+     above;
   5. timing: each attention kernel against its plain version and against
      ``scaled_dot_product_attention`` on the flash and cuDNN backends (the
      backward's dq and dk/dv kernels also apart, from ``torch.profiler``), and
@@ -62,6 +68,8 @@ which raises on failure:
      the plain attention, and the iCaRL / resnet18 step
      (batch 128, bf16, 32 px), with a device-time breakdown of the L2P,
      DualPrompt, MoE-Adapter4CL and iCaRL steps from ``torch.profiler``;
+     each online method's task-1 step at its shipped batch, with its CUDA
+     kernels a step, and ER-ACE's and OCM's steps profiled;
      and the whole 10-task iCaRL protocol of ``bench.py``'s end-to-end block
      through the trainer: wall time and final accuracy;
   6. the generic attention op (``fused_attention``) and the Pallas
@@ -155,6 +163,12 @@ C_TIMED = C_MAIN[1]  # the first stage: the conv kernels' numbers in the kernels
 # its three stages (16, 32, 64 channels at 32, 16, 8 px), the WA path's
 C_CIFAR32 = [(128, 32, 32, 3, 16), (128, 32, 32, 16, 16), (128, 16, 16, 32, 32),
              (128, 8, 8, 64, 64)]
+# resnet18_AML's stride-1 3x3 convolutions at batch 128 (bf16): the stem and
+# its four stages (20, 40, 80, 160 channels at 32, 16, 8, 4 px), the ER-ACE
+# path's; not multiples of 16
+C_AML = [(128, 32, 32, 3, 20), (128, 32, 32, 20, 20), (128, 16, 16, 40, 40),
+         (128, 8, 8, 80, 80), (128, 4, 4, 160, 160)]
+C_AML_TIMED = C_AML[1]
 # the trained iCaRL network's captured batch through conv3x3 against the
 # modules' own cuDNN results: both bf16 from f32 sums in another order (dw:
 # f32 against cuDNN's bf16), relative L2
@@ -365,6 +379,37 @@ CLASSIC_CONFIGS = {
 CLASSIC_CUTS = ("bf16, batch 128, 2 tasks of 10 synthetic classes (60 images a class, 32 px, "
                 "the CIFAR stem), 1 epoch a task, buffer 200 (EWC and LwF: none, they do not "
                 "replay), BiC's stage2_epoch 2")
+
+# the online methods, each at its shipped config's backbone, width, batch,
+# buffer and optimizer (configs/erace.yaml, eraml.yaml, ocm.yaml, praka.yaml,
+# as dicts) from random init, cut to 2 synthetic tasks and 1 epoch a task:
+# ER keeps its 2-class tasks and 10-class head at 300 images a class (60
+# steps of 10 a task), OCM and PRAKA take 2 tasks of 10 classes at 60 images
+# a class; all stored at 32 px with the CIFAR transform stack
+_CIFAR_STEM = {"args": {"dataset": "cifar100"}}
+_ER = {"backbone": ("resnet18_AML", {}), "batch_size": 10, "classes": (2, 2, 10),
+       "per_class": 300, "buffer": {"name": "ERBuffer", "kwargs": {"buffer_size": 1000,
+                                                                  "batch_size": 10}},
+       "optimizer": {"name": "SGD", "kwargs": {"lr": 0.1}}}
+ONLINE_CONFIGS = {
+    "ERACE": {**_ER, "kwargs": {"feat_dim": 160, "use_augs": False, "task_free": True}},
+    "ERAML": {**_ER, "kwargs": {"feat_dim": 160, "use_augs": False, "task_free": True,
+                                "supcon_temperature": 0.1, "use_minimal_selection": False}},
+    "OCM": {"backbone": ("resnet18", _CIFAR_STEM), "batch_size": 10, "classes": (10, 10, 100),
+            "per_class": 60, "buffer": {"name": "OnlineBuffer", "kwargs": {
+                "buffer_size": 2000, "batch_size": 64}},
+            "optimizer": {"name": "Adam", "kwargs": {"lr": 0.001}},
+            "kwargs": {"feat_dim": 512, "buffer_batch_size": 64}},
+    "PRAKA": {"backbone": ("resnet18", _CIFAR_STEM), "batch_size": 128, "classes": (10, 10, 100),
+              "per_class": 60, "optimizer": {"name": "Adam", "kwargs": {"lr": 0.001}},
+              "kwargs": {"feat_dim": 512}},
+}
+ONLINE_CUTS = ("bf16, 2 synthetic tasks stored at 32 px (the CIFAR stem; resnet18_AML has it "
+               "always), 1 epoch a task (shipped: ER 5, OCM 1, PRAKA 100); ER-ACE and ER-AML: "
+               "their 2-class tasks and 10-class head at 300 images a class, batch 10 (60 steps "
+               "a task), buffer 1000; OCM: 2 tasks of 10 classes at 60 images a class, batch "
+               "10, buffer 2000, replay batch 64; PRAKA: 2 tasks of 10 classes at 60 images a "
+               "class, batch 128")
 
 
 def _err(out: torch.Tensor, ref: torch.Tensor):
@@ -781,7 +826,7 @@ def phase_conv_checks(dev, errs, checked):
     the backward computes it) and dw (f32); adds the ``_shape_key`` of each
     checked launch to ``checked``."""
     C = _conv_module()
-    cases = C_SMALL + [(shape, torch.bfloat16) for shape in C_MAIN + C_CIFAR32]
+    cases = C_SMALL + [(shape, torch.bfloat16) for shape in C_MAIN + C_CIFAR32 + C_AML]
     for i, (shape, dtype) in enumerate(cases):
         x, k, go = _conv_inputs(shape, dtype, dev, seed=300 + i)
         kr = C.rotate_taps(k).contiguous()
@@ -798,7 +843,7 @@ def phase_conv_checks(dev, errs, checked):
             f"{n} {a:.3e} ({r:.3e}, tolerance {tol[n]:.1e})" for n, (a, r) in got.items()))
         for n, (_, r) in got.items():
             _require(dw.dtype == torch.float32 and r <= tol[n], f"conv kernel {n} disagrees at {tag}")
-        if shape in C_MAIN + C_CIFAR32:
+        if shape in C_MAIN + C_CIFAR32 + C_AML:
             errs["conv3x3_fwd"] = max(errs["conv3x3_fwd"], got["y"][0], got["dx"][0])
             errs["conv3x3_dw"] = max(errs["conv3x3_dw"], got["dw"][0])
 
@@ -1297,9 +1342,10 @@ def _rel_l2(a, b) -> float:
 
 def phase_icarl_conv_path(trainer, dev, seen, net="resnet18", n_convs=14):
     """One training batch of 128 through a trained network's loss (iCaRL's
-    resnet18, WA's cifar_resnet32; CE and KD at task 1): hooks capture the
-    input and the output gradient of each of its ``n_convs`` stride-1 3x3
-    convolutions. ``conv3x3`` (forward, and backward through autograd: the
+    resnet18, WA's cifar_resnet32: CE and KD at task 1; ER-ACE's
+    resnet18_AML: the batch's CE and the replay CE): hooks capture the input
+    and the output gradient of each of its ``n_convs`` stride-1 3x3
+    convolutions in the batch's forward. ``conv3x3`` (forward, and backward through autograd: the
     forward kernel for dx, the dw kernel) then recomputes y, dx and dw of
     each; they agree with the modules' own cuDNN results. Returns this run's
     launch counts: exactly 2 forward-kernel launches and 1 dw launch a
@@ -1317,6 +1363,8 @@ def phase_icarl_conv_path(trainer, dev, seen, net="resnet18", n_convs=14):
     captured, handles = {}, []
     for name, mod in convs:
         def hook(mod, args, out, name=name):
+            if name in captured:  # ER's replay forward: the batch's is the one
+                return
             cap = captured[name] = {"x": args[0].detach().to(mod.dtype), "y": out.detach()}
             out.register_hook(lambda g: cap.__setitem__("g", g.detach()))
         handles.append(mod.register_forward_hook(hook))
@@ -1509,6 +1557,156 @@ def phase_backbone_steps(dev, card):
         _require(np.isfinite(loss) and not torch.equal(stem0, stem), f"{bb}: step failed")
         del method, state
         torch.cuda.empty_cache()
+
+
+def _online_config(name):
+    node = ONLINE_CONFIGS[name]
+    init, inc, num_class = node["classes"]
+    cfg = {
+        "dataset": "synthetic", "data_root": "", "image_size": 32, "task_num": 2,
+        "init_cls_num": init, "inc_cls_num": inc, "epoch": 1, "batch_size": node["batch_size"],
+        "per_class": node["per_class"], "seed": 1993, "val_per_epoch": 0, "testing_times": 1,
+        "dtype": "bfloat16", "warmup": 0, "mesh": {"data": 1, "model": 1},
+        "train_trfms": ICARL_CONFIG["train_trfms"], "test_trfms": ICARL_CONFIG["test_trfms"],
+        "optimizer": node["optimizer"], "lr_scheduler": {"name": "Constant"},
+        "backbone": {"name": node["backbone"][0], "kwargs": node["backbone"][1]},
+        "classifier": {"name": name, "kwargs": {
+            "num_class": num_class, "init_cls_num": init, "inc_cls_num": inc, "task_num": 2,
+            **node["kwargs"]}},
+    }
+    if "buffer" in node:
+        cfg["buffer"] = node["buffer"]
+    return copy.deepcopy(cfg)
+
+
+def _device_kernels_per_step(method, state, batch, lr, steps=3):
+    """CUDA kernels a train step, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            method.train_step(state, batch, lr)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / steps
+
+
+def _check_slab(name, trainer, state):
+    """The reservoir slab after the run: ``n_seen`` is the count of weight-1
+    images the stream showed, the first min(n_seen, cap) slots are filled,
+    and each holds a label and a task that the stream showed together."""
+    buf = state.mvars["buffer"]
+    cap, n_seen = buf["by"].shape[0], int(buf["n_seen"])
+    shown = sum(len(trainer.train_stream.task(t)) for t in range(trainer.task_num))
+    filled = min(n_seen, cap)
+    by, bt = buf["by"][:filled].cpu().numpy(), buf["bt"][:filled].cpu().numpy()
+    written = bool((buf["bx"][:filled].reshape(filled, -1).amax(dim=1) > 0).all())
+    consistent = all(
+        ((by[bt == t] >= lo) & (by[bt == t] < hi)).all()
+        for t, (lo, hi) in enumerate(map(trainer.train_stream.class_range, range(trainer.task_num))))
+    print(f"[online {name}] buffer: n_seen {n_seen} of {shown} weight-1 images shown, {filled} "
+          f"of {cap} slots filled, tasks {np.bincount(bt).tolist()}, labels "
+          f"{np.bincount(by).tolist()}")
+    _require(n_seen == shown, f"{name}: n_seen {n_seen}, not the {shown} images shown")
+    _require(written and set(bt.tolist()) <= set(range(trainer.task_num)) and consistent,
+             f"{name}: the slab holds an image, label or task the stream did not show")
+
+
+def phase_online_methods(dev, card):
+    """ER-ACE, ER-AML, OCM and PRAKA through the port's trainer on the card
+    (``ONLINE_CONFIGS``, cut as ``ONLINE_CUTS`` says): finite losses, the acc
+    table filled, the stem and the heads moved, no kernel of the port
+    launched (the ResNets' convolutions are cuDNN's); the replay slabs
+    (``_check_slab``); OCM's replay batch 64 at task 1, ER's 10; PRAKA's
+    prototypes after task 0 exactly the task-0 classes'. Then each method's
+    task-1 train step at its shipped batch (20 steps after 3 warm-up steps,
+    on one batch of the task-1 stream), with its CUDA kernels a step, and
+    ER-ACE's and OCM's steps profiled. Returns the trained ER-ACE trainer (its
+    resnet18_AML feeds the conv-kernel path) and {method: img/s}."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.core.trainer import Trainer
+
+    print(f"[online] cuts: {ONLINE_CUTS}")
+    rates, erace = {}, None
+    for name in ONLINE_CONFIGS:
+        trainer = Trainer(Config(overrides=_online_config(name)).get_config_dict(), device=dev)
+        method, cfg = trainer.method, trainer.config
+        params0 = {k: v.clone() for k, v in trainer.state.params.state_dict().items()}
+        losses, replay, protos0 = [], set(), []
+        draw, after = method.draw, method.after_task
+
+        def record_draw(state, batch, draw=draw, replay=replay):
+            d = draw(state, batch)
+            if state.task == 1 and "replay_idx" in d:
+                replay.add(d["replay_idx"].shape[0])
+            return d
+
+        def record_after(state, task_idx, task_data, after=after, protos0=protos0):
+            state = after(state, task_idx, task_data)
+            if task_idx == 0 and "proto_valid" in state.mvars:
+                protos0.append(state.mvars["proto_valid"].cpu().numpy().copy())
+            return state
+        method.draw, method.after_task = record_draw, record_after
+        trainer.epoch_hook = lambda t, e, s, step_losses: losses.append(np.asarray(step_losses))
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = trainer.train_loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        method.draw, method.after_task = draw, after
+        state, table = trainer.state, res["acc_table"]
+        flat = np.concatenate(losses)
+        n_bb = sum(p.numel() for p in state.params["backbone"].parameters())
+        print(f"[online {name}] {cfg['backbone']['name']} ({n_bb} backbone parameters, "
+              f"{method.feat_dim}-d features), batch {cfg['batch_size']}, steps "
+              f"{[len(x) for x in losses]} in {wall:.1f} s; losses: first {flat[:3].round(4).tolist()}, "
+              f"last {flat[-3:].round(4).tolist()}, mean {flat.mean():.4f}")
+        print(f"[online {name}] acc table {table.tolist()}, last avg acc {res['last_avg_acc']}")
+        _require(np.isfinite(flat).all(), f"{name}: non-finite loss")
+        _require(table.shape == (2, 2) and np.isfinite(table).all(), f"{name}: acc table not filled")
+        params1 = state.params.state_dict()
+        moved = [k for k in ("head.weight", "head.dense.weight", "single.dense.weight",
+                             "proj.weight", "backbone.conv_stem.weight") if k in params0]
+        for pname in moved:
+            _require(not torch.equal(params0[pname], params1[pname]), f"{name}: {pname} did not move")
+        _require(not any(launches.values()), f"{name}: the ResNet launched a kernel: {launches}")
+        if "buffer" in state.mvars:
+            _check_slab(name, trainer, state)
+            want = 64 if name == "OCM" else 10
+            print(f"[online {name}] replay batch at task 1: {sorted(replay)}")
+            _require(replay == {want}, f"{name}: replay batch {sorted(replay)}, not {want}")
+        if name == "PRAKA":
+            lo, hi = trainer.train_stream.class_range(0)
+            valid = np.flatnonzero(protos0[0]).tolist()
+            print(f"[online PRAKA] prototypes valid after task 0: classes {valid}; after task "
+                  f"1: {int(state.mvars['proto_valid'].sum())} classes")
+            _require(valid == list(range(lo, hi)), "PRAKA: the task-0 prototypes are wrong")
+        td = trainer.train_stream.task(1)
+        bs, lr = cfg["batch_size"], cfg["optimizer"]["kwargs"]["lr"]
+        batch = {"image": torch.from_numpy(td.images[:bs]).to(dev),
+                 "label": torch.from_numpy(td.labels[:bs].astype(np.int64)).to(dev),
+                 "weight": torch.ones(bs, device=dev)}
+        _reset_launches()
+        rates[name] = _step_rate(method, state, batch, lr)
+        port = sum(_launches().values())
+        kernels = _device_kernels_per_step(method, state, batch, lr)
+        print(f"[timing] {name} task-1 train step ({cfg['backbone']['name']} {cfg['dtype']}, batch {bs}, 32 "
+              f"px): {rates[name]:.2f} img/s, {kernels:.0f} CUDA kernels a step, {port} launches "
+              f"of the port's kernels in the 23 steps [{card}]")
+        if name in ("ERACE", "OCM"):  # batch 10: the host's step and the device's
+            _profile_step(method, state, batch, name, card, lr=lr,
+                          family=("cuDNN convolution (by name)",
+                                  ("fprop", "dgrad", "wgrad", "xmma", "cudnn", "implicit",
+                                   "conv2d")))
+        if name == "ERACE":
+            erace = trainer  # the conv path runs on its trained network
+        del trainer, state, method
+        torch.cuda.empty_cache()
+    print(f"[timing] online methods' task-1 train steps (bf16, 32 px): " + ", ".join(
+        f"{n} {r:.2f} img/s (batch {ONLINE_CONFIGS[n]['batch_size']})" for n, r in rates.items())
+        + f" [{card}]")
+    return erace, rates
 
 
 @contextlib.contextmanager
@@ -1988,8 +2186,9 @@ def _conv_bounds(b, h, w, c, o):
 
 
 def phase_conv_timing(dev, card):
-    """The conv kernels at resnet18's stem and four stages and at
-    cifar_resnet32's stem and three stages (bf16, B 128), beside their plain versions and cuDNN (``F.conv2d`` on ``channels_last``
+    """The conv kernels at resnet18's stem and four stages, at
+    cifar_resnet32's stem and three stages and at resnet18_AML's first stage
+    (bf16, B 128), beside their plain versions and cuDNN (``F.conv2d`` on ``channels_last``
     and its data and weight gradients through ``aten.convolution_backward``;
     the port never calls them): y, dx (the forward kernel on the output
     gradient and the rotated taps, bound by ``_conv_bounds`` with C and O
@@ -1997,7 +2196,7 @@ def phase_conv_timing(dev, card):
     bound, dx times, dx bound)}."""
     C = _conv_module()
     out = {}
-    for shape in C_MAIN + C_CIFAR32:
+    for shape in C_MAIN + C_CIFAR32 + [C_AML_TIMED]:
         b, h, w, c, o = shape
         x, k, go = _conv_inputs(shape, torch.bfloat16, dev, seed=9)
         xc, gc = x.permute(0, 3, 1, 2), go.permute(0, 3, 1, 2)  # NCHW views of NHWC memory
@@ -2243,6 +2442,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_backbone_steps(dev, card)
     print(f"[env] the classic ResNet phases in {time.perf_counter() - t_classic:.1f} s")
+    t_online = time.perf_counter()
+    trainer, _ = phase_online_methods(dev, card)
+    launches["ERACE_resnet18_AML conv3x3"] = phase_icarl_conv_path(
+        trainer, dev, seen, net="resnet18_AML", n_convs=14)
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"[env] the online phases in {time.perf_counter() - t_online:.1f} s")
     t_gen = time.perf_counter()
     launches[GENERIC_PATH] = phase_generic_path(captures, dev, seen)
     del captures

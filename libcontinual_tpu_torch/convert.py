@@ -21,10 +21,11 @@ Layout maps (the inverse of ``_load_timm_torch_into`` in
     ``SpatialGate_0``, the ``Conv_2`` / ``BatchNorm_2`` shortcut), TinyCNN's
     two conv / BatchNorm pairs; the BatchNorm ``scale`` / ``bias`` with the
     ``batch_stats`` ``mean`` / ``var`` as the running buffers;
-  * the ResNet methods' ``{"backbone", "head"}`` tree (``head`` a Dense or
-    LUCIR's cosine ``kernel`` and ``sigma``; DER's ``backbone`` leaves stacked
-    on a leading ``task_num`` axis, one slice per extractor, and its ``aux``
-    head) and their ``mvars`` (:func:`resnet_state_from_flax`);
+  * the ResNet methods' ``{"backbone", "head"}`` tree (``head`` a Dense,
+    LUCIR's cosine ``kernel`` and ``sigma`` or ER's cosine ``kernel``; DER's
+    ``backbone`` leaves stacked on a leading ``task_num`` axis, one slice per
+    extractor, and its ``aux`` head; PRAKA's ``single`` head; OCM's ``proj``
+    Dense) and their ``mvars`` (:func:`resnet_state_from_flax`);
   * the CLIP tree (both towers, ``ln_pre_n``, ``token_embedding``,
     ``pos_embed``, both projections, ``logit_scale``) and the MoE leaves
     (``w_gate``, ``w_noise``, ``down``, ``down_b``, ``up``, ``up_b``) as they
@@ -149,13 +150,16 @@ def load_resnet(resnet: nn.Module, p: Tree, stats: Tree) -> None:
 
 
 def load_head(head: nn.Module, p: Tree, name: str = "head") -> None:
-    """A ``LinearHead`` (``Dense_0``) or a ``CosineLinear`` (``kernel``,
-    ``sigma``)."""
+    """A ``LinearHead`` (``Dense_0``), a ``CosineLinear`` (``kernel``,
+    ``sigma``) or a ``DistLinear`` (``kernel``)."""
     if "Dense_0" in p:
         load_dense(head.dense, p["Dense_0"], f"{name}.Dense_0")
         return
     _put(head.weight, _tensor(p["kernel"]).T, f"{name}.kernel")
-    _put(head.sigma, _tensor(p["sigma"]), f"{name}.sigma")
+    if ("sigma" in p) != hasattr(head, "sigma"):
+        raise ValueError(f"{name}: sigma on one side only")
+    if "sigma" in p:
+        _put(head.sigma, _tensor(p["sigma"]), f"{name}.sigma")
 
 
 def _task_slice(tree: Tree, i: int) -> Tree:
@@ -165,19 +169,21 @@ def _task_slice(tree: Tree, i: int) -> Tree:
 
 
 def load_backbone_params(modules: nn.ModuleDict, p: Tree, batch_stats: Tree) -> None:
-    """A ResNet method's ``{"backbone", "head"[, "aux"]}`` tree and its
-    backbone's ``batch_stats`` into the port's modules; a ``ModuleList`` of
-    backbones (DER) takes a tree whose leaves stack the extractors on a
-    leading axis."""
+    """A ResNet method's ``{"backbone", "head"[, "aux" | "single" |
+    "proj"]}`` tree and its backbone's ``batch_stats`` into the port's
+    modules; a ``ModuleList`` of backbones (DER) takes a tree whose leaves
+    stack the extractors on a leading axis."""
     bb = modules["backbone"]
     if isinstance(bb, nn.ModuleList):
         for i, m in enumerate(bb):
             load_resnet(m, _task_slice(p["backbone"], i), _task_slice(batch_stats, i))
     else:
         load_resnet(bb, p["backbone"], batch_stats)
-    for name in ("head", "aux"):
+    for name in ("head", "aux", "single"):
         if name in modules:
             load_head(modules[name], p[name], name)
+    if "proj" in modules:
+        load_dense(modules["proj"], p["proj"], "proj")
 
 
 def named_like(params: nn.ModuleDict, tree: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
@@ -195,8 +201,11 @@ def load_method_state(method, state, params: Tree, mvars: Tree) -> None:
     numpy trees. What a method keeps in ``mvars`` comes along: iCaRL's
     teacher, class means and their flags, the teachers of LwF, WA, LUCIR and
     BiC, EWC's Fisher and reference parameters, BiC's alphas, betas and
-    decay, LUCIR's ``cur_lamda`` and ``head_col_mask``, and DER's active
-    count (a new count rebuilds the optimizer over the newest extractor)."""
+    decay, LUCIR's ``cur_lamda`` and ``head_col_mask``, DER's active
+    count (a new count rebuilds the optimizer over the newest extractor),
+    the replay slabs of ER-ACE, ER-AML and OCM with their ``n_seen``,
+    ER's ``seen_so_far``, the teachers of OCM and PRAKA (their ``proj`` and
+    ``single`` heads included) and PRAKA's prototypes and their flags."""
     stats = mvars["model_state"]["batch_stats"]
     load_backbone_params(state.params, params, stats)
     mv, dev = state.mvars, method.device
@@ -210,7 +219,15 @@ def load_method_state(method, state, params: Tree, mvars: Tree) -> None:
         if key in mv:
             mv[key] = {k: v.to(dev) for k, v in
                        named_like(state.params, mvars[key], stats).items()}
-    for key in ("alphas", "betas", "head_col_mask"):
+    if "buffer" in mv:
+        buf = mvars["buffer"]
+        mv["buffer"] = {
+            "bx": torch.from_numpy(np.array(buf["bx"], dtype=np.uint8)).to(dev),
+            **{k: torch.from_numpy(np.array(buf[k], dtype=np.int64)).to(dev)
+               for k in ("by", "bt", "n_seen")}}
+    if "seen_so_far" in mv:
+        mv["seen_so_far"] = int(np.asarray(mvars["seen_so_far"]))
+    for key in ("alphas", "betas", "head_col_mask", "protos", "proto_valid"):
         if key in mv:
             mv[key] = _tensor(mvars[key]).to(dev)
     for key in ("wd", "cur_lamda"):

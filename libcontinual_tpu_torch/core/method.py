@@ -81,6 +81,8 @@ class Method:
     #: the trainer concatenates the replay buffer into the task data and
     #: updates it after each task
     concat_buffer: bool = True
+    #: the trainer validates between a task's epochs (PRAKA turns it off)
+    validate_enabled: bool = True
 
     def __init__(self, config: Dict[str, Any], device):
         self.config = config
@@ -140,9 +142,12 @@ class Method:
         head = LinearHead(self.feat_dim, self.num_class, generator=gen)
         return self.backbone_state(backbone, head, seed)
 
-    def backbone_state(self, backbone: nn.Module, head: nn.Module, seed: int) -> TrainState:
-        """A state around given modules: both trainable, f32 parameters."""
-        params = nn.ModuleDict({"backbone": backbone, "head": head}).to(self.device)
+    def backbone_state(self, backbone: nn.Module, head: nn.Module, seed: int,
+                       **extra: nn.Module) -> TrainState:
+        """A state around given modules (``extra`` beside the backbone and the
+        head: OCM's projection, PRAKA's single head): all trainable, f32
+        parameters."""
+        params = nn.ModuleDict({"backbone": backbone, "head": head, **extra}).to(self.device)
         seen, prev = make_masks(self.num_class, 0, self.init_cls_num, self.device)
         state = TrainState(
             params=params,

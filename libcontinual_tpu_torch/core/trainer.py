@@ -161,7 +161,8 @@ class Trainer:
                 acc=ep_acc, images_per_sec=ips, lr=float(lrs[0]),
             )
             if (
-                self.val_per_epoch > 0
+                method.validate_enabled
+                and self.val_per_epoch > 0
                 and (epoch_idx + 1) % self.val_per_epoch == 0
                 and bool(self.config.get("eval_with_test", True))
                 and epochs > 1

@@ -59,6 +59,27 @@ class CosineLinear(nn.Module):
         return self.scores(feats) * self.sigma
 
 
+class DistLinear(nn.Module):
+    """ER-ACE / ER-AML's cosine head at a fixed scale (10): the cosine
+    between the features and each class's weight row, both norms with
+    ``+1e-5``. The weight is ``(num_class, in)``, one row per class (the flax
+    kernel's column), drawn from flax ``kaiming_uniform`` (U(+-sqrt(6/in)),
+    ``nn.init.kaiming_uniform_`` with ``a=0``)."""
+
+    def __init__(self, in_features: int, num_class: int,
+                 generator: Optional[torch.Generator] = None, scale: float = 10.0):
+        super().__init__()
+        self.scale = scale
+        self.weight = nn.Parameter(torch.empty(num_class, in_features))
+        nn.init.kaiming_uniform_(self.weight, a=0.0, generator=generator)
+
+    def forward(self, feats):
+        f = feats.float()
+        f = f / (torch.linalg.vector_norm(f, dim=-1, keepdim=True) + 1e-5)
+        w = self.weight / (torch.linalg.vector_norm(self.weight, dim=1, keepdim=True) + 1e-5)
+        return self.scale * (f @ w.T)
+
+
 def bias_correct(logits: torch.Tensor, alphas: torch.Tensor, betas: torch.Tensor,
                  task_of_class: torch.Tensor) -> torch.Tensor:
     """BiC's per-task bias layers: ``alpha_t * logit + beta_t`` for each class

@@ -39,6 +39,9 @@ MODULES = [
     "libcontinual_tpu_torch.methods.lucir",
     "libcontinual_tpu_torch.methods.bic",
     "libcontinual_tpu_torch.methods.der",
+    "libcontinual_tpu_torch.methods.er",
+    "libcontinual_tpu_torch.methods.ocm",
+    "libcontinual_tpu_torch.methods.praka",
     "libcontinual_tpu_torch.models.cbam",
     "libcontinual_tpu_torch.models.heads",
     "libcontinual_tpu_torch.methods.prompt_methods",
