@@ -56,7 +56,16 @@ which raises on failure:
      configs' widths, 2 tasks and 1 epoch a task, with their buffers and
      prototypes checked, and the trained ER-ACE resnet18_AML's 14 stride-1
      3x3 convolutions (20, 40, 80 and 160 channels) through ``conv3x3`` as
-     above;
+     above; then the gradient-projection methods at their shipped configs'
+     widths, 2 tasks and 1 epoch a task: GPM, TRGP and API on AlexNet (batch
+     64, 32 px; API with its 5 stage-1 epochs) and DMNSP on ViT-B/16 with
+     64-wide adapters (224 px, batch 128, AdamW, CosineAnnealingWarmUp), with
+     the projection invariants at the first task-1 step, the frozen parts
+     (batch norms, TRGP's task-0 scales, DMNSP's trunk) bitwise unchanged,
+     API's expansion slots, the boundary hooks' seconds, DMNSP's 12 forward
+     and 11 + 11 backward attention launches a step (wrapper counts and
+     ``torch.profiler``) and one full-width DMNSP batch through the kernels
+     against the plain attention;
   5. timing: each attention kernel against its plain version and against
      ``scaled_dot_product_attention`` on the flash and cuDNN backends (the
      backward's dq and dk/dv kernels also apart, from ``torch.profiler``), and
@@ -69,7 +78,9 @@ which raises on failure:
      (batch 128, bf16, 32 px), with a device-time breakdown of the L2P,
      DualPrompt, MoE-Adapter4CL and iCaRL steps from ``torch.profiler``;
      each online method's task-1 step at its shipped batch, with its CUDA
-     kernels a step, and ER-ACE's and OCM's steps profiled;
+     kernels a step, and ER-ACE's and OCM's steps profiled; each
+     gradient-projection method's task-1 step at its shipped batch, and
+     DMNSP's step profiled;
      and the whole 10-task iCaRL protocol of ``bench.py``'s end-to-end block
      through the trainer: wall time and final accuracy;
   6. the generic attention op (``fused_attention``) and the Pallas
@@ -411,6 +422,48 @@ ONLINE_CUTS = ("bf16, 2 synthetic tasks stored at 32 px (the CIFAR stem; resnet1
                "10, buffer 2000, replay batch 64; PRAKA: 2 tasks of 10 classes at 60 images a "
                "class, batch 128")
 
+
+# the gradient-projection methods at their shipped configs' width, batch,
+# optimizer and schedule (configs/gpm.yaml, trgp.yaml, api_til.yaml and
+# dmnsp.yaml, as dicts; their classifier nodes as shipped, so API preallocates
+# the 9 expansion slots of 10 tasks) from random init, cut as GRADPROJ_CUTS says
+_ALEXNET_RUN = {
+    "dataset": "synthetic", "data_root": "", "image_size": 32, "task_num": 2,
+    "init_cls_num": 10, "inc_cls_num": 10, "epoch": 1, "batch_size": 64, "per_class": 60,
+    "seed": 1993, "val_per_epoch": 0, "testing_times": 1, "dtype": "bfloat16",
+    "setting": "task-aware", "warmup": 0, "mesh": {"data": 1, "model": 1},
+    "optimizer": {"name": "SGD", "kwargs": {"lr": 0.01}}, "lr_scheduler": {"name": "Constant"},
+}
+_ALEXNET_HEAD = {"num_class": 100, "feat_dim": 2048, "init_cls_num": 10, "inc_cls_num": 10,
+                 "task_num": 10}
+GRADPROJ_CONFIGS = {
+    "GPM": {**_ALEXNET_RUN, "backbone": {"name": "AlexNet_TRGP", "kwargs": {}},
+            "classifier": {"name": "GPM", "kwargs": _ALEXNET_HEAD}},
+    "TRGP": {**_ALEXNET_RUN, "backbone": {"name": "AlexNet_TRGP", "kwargs": {}},
+             "classifier": {"name": "TRGP", "kwargs": _ALEXNET_HEAD}},
+    "API": {**_ALEXNET_RUN, "backbone": {"name": "AlexNet_API", "kwargs": {}},
+            "classifier": {"name": "API", "kwargs": {**_ALEXNET_HEAD, "lame": 1.0,
+                                                     "lamb": 0.97}}},
+    "DMNSP": {
+        "dataset": "synthetic", "data_root": "", "image_size": 224, "task_num": 2,
+        "init_cls_num": 5, "inc_cls_num": 5, "epoch": 1, "batch_size": 128, "per_class": 51,
+        "seed": 1993, "val_per_epoch": 0, "testing_times": 1, "dtype": "bfloat16",
+        "warmup": 0, "mesh": {"data": 1, "model": 1},
+        "optimizer": {"name": "AdamW", "kwargs": {"lr": 0.001, "weight_decay": 0.0}},
+        "lr_scheduler": {"name": "CosineAnnealingWarmUp", "kwargs": {"warmup_length": 30}},
+        "backbone": {"name": "ViTZoo", "kwargs": {"adapter_dim": 64}},
+        "classifier": {"name": "DMNSP", "kwargs": {
+            "num_class": 100, "feat_dim": 768, "init_cls_num": 10, "inc_cls_num": 10,
+            "task_num": 10, "lamda_scale": 30, "embd_dim": 768, "label_smoothing": 0.0}},
+    },
+}
+GRADPROJ_CUTS = ("bf16, 2 synthetic tasks, 1 epoch a task (shipped 50 and 4); GPM, TRGP and "
+                 "API: 10 classes a task at 60 images a class, 32 px, batch 64 (10 steps a "
+                 "task), API's 5 stage-1 epochs and its stage-2 pass kept; DMNSP: its 5 "
+                 "classes a task at 51 images a class, 224 px, batch 128 (2 steps a task)")
+#: the projection invariants at a task-1 step, relative (f32 products of f32
+#: projectors from float64 bases; DMNSP's P from f32 QR)
+PROJ_RESIDUAL_TOL = 1e-4
 
 def _err(out: torch.Tensor, ref: torch.Tensor):
     """(max abs error, the same over max(1, max |ref|))."""
@@ -1709,6 +1762,257 @@ def phase_online_methods(dev, card):
     return erace, rates
 
 
+def _gradproj_config(name):
+    return copy.deepcopy(GRADPROJ_CONFIGS[name])
+
+
+def _count_step_kernels(method, state, batch, lr, names):
+    """Launches of each named CUDA kernel in one train step, from
+    ``torch.profiler`` (device events whose name contains the name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        method.train_step(state, batch, lr)
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(names, 0)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in evt.key:
+                    counts[n] += evt.count
+    return counts
+
+
+def _projection_residuals(name, method, state, raw):
+    """At a task-1 step, the projected gradients ``g'`` (in place) against
+    the raw ``g``: GPM and TRGP, and API's remove layers, ``||P g'|| /
+    ||g||`` (API's retain layers: ``||g'|| on the old rows``, exactly 0);
+    DMNSP, each adapter weight's ``||g' - P g'|| / ||g'||`` (``down`` is
+    ``(b, d)``: ``g' P^T``; ``up`` is ``(d, b)``: ``P^T g'``)."""
+    from libcontinual_tpu_torch.models.alexnet import kernel_rows
+
+    out = {}
+    mv = state.mvars
+    if name == "DMNSP":
+        for i, ad in enumerate(state.params["adapters"].values()):
+            P = mv["P"][i]
+            for part, proj in (("down", lambda g: g @ P.T), ("up", lambda g: P.T @ g)):
+                g = getattr(ad, part).weight.grad.float()
+                out[f"block_{i}.{part}"] = float((g - proj(g)).norm() / g.norm())
+        return out
+    for li, w in enumerate(state.params["backbone"].layer_weights()):
+        g, gp = kernel_rows(raw[li]).float(), kernel_rows(w.grad).float()
+        if name == "API" and float(mv["proj_sign"][li]) < 0:
+            old = mv["old_rows"][li][:, None]
+            out[f"layer {li} retain: |g'| on old rows"] = float((gp * old).norm())
+        else:
+            out[f"layer {li}"] = float((mv["proj"][li] @ gp).norm() / g.norm())
+    return out
+
+
+def phase_gradproj_methods(dev, card, seen):
+    """GPM, TRGP and API (AlexNet) and DMNSP (the adapter ViT-B/16) through
+    the port's trainer on the card (``GRADPROJ_CONFIGS``, cut as
+    ``GRADPROJ_CUTS`` says): finite losses and a filled acc table; at the
+    first task-1 step, the projection (``_projection_residuals``) within
+    ``PROJ_RESIDUAL_TOL``; the batch norms bitwise unchanged through task 1
+    (AlexNet), TRGP's task-0 scales bitwise unchanged, API's expansion counts
+    and the slots they wrote, DMNSP's trunk bitwise unchanged; the boundary
+    hooks' seconds. DMNSP's run launches the packed attention forward in
+    every block and its backward in blocks 1-11 each step; one full-width
+    task-1 batch agrees through the kernels and the plain attention, and
+    ``torch.profiler`` counts the three kernels of one step. Then each
+    method's task-1 train step at its shipped batch (20 steps after 3
+    warm-up), and DMNSP's step profiled. Returns the DMNSP run's launch
+    counts and {method: img/s}."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.core.trainer import Trainer
+
+    print(f"[gradproj] cuts: {GRADPROJ_CUTS}")
+    rates, dmnsp_launches = {}, None
+    for name in GRADPROJ_CONFIGS:
+        t_method = time.perf_counter()
+        trainer = Trainer(Config(overrides=_gradproj_config(name)).get_config_dict(), device=dev)
+        method, cfg, state0 = trainer.method, trainer.config, trainer.state
+        losses, seconds, snap, checks = [], {"before_task": [], "after_task": []}, {}, {}
+        hooks = {k: getattr(method, k) for k in ("before_task", "after_task", "transform_grads")}
+
+        def timed(key):
+            def hook(state, task_idx, task_data):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = hooks[key](state, task_idx, task_data)
+                torch.cuda.synchronize()
+                seconds[key].append(round(time.perf_counter() - t0, 3))
+                if key == "before_task" and task_idx == 1:
+                    if name != "DMNSP":
+                        snap["bn"] = {k: v.clone() for k, v in state.params["backbone"]
+                                      .named_parameters() if k.startswith("bn")}
+                    if name == "TRGP":
+                        snap["tr_scale_0"] = [s[0].detach().clone() for s in state.params["tr_scale"]]
+                return state
+            return hook
+
+        def transform(state):
+            if state.task != 1 or "proj" in checks:
+                return hooks["transform_grads"](state)
+            if name == "DMNSP":
+                hooks["transform_grads"](state)
+                raw = None
+            else:
+                raw = [w.grad.clone() for w in state.params["backbone"].layer_weights()]
+                hooks["transform_grads"](state)
+            checks["proj"] = _projection_residuals(name, method, state, raw)
+
+        def epoch_end(t, e, state, step_losses):
+            losses.append(np.asarray(step_losses))
+            if t == 1 and "bn" in snap:
+                now = dict(state.params["backbone"].named_parameters())
+                checks["bn unchanged"] = all(torch.equal(v, now[k]) for k, v in snap["bn"].items())
+            if t == 1 and name == "TRGP":
+                checks["task-0 scales unchanged"] = all(
+                    torch.equal(a, s[0]) for a, s in zip(snap["tr_scale_0"], state.params["tr_scale"]))
+                checks["task-1 scales moved"] = [
+                    not torch.equal(s[1], torch.eye(s.shape[-1], device=dev))
+                    for s in state.params["tr_scale"]]
+
+        method.before_task, method.after_task = timed("before_task"), timed("after_task")
+        method.transform_grads = transform
+        trainer.epoch_hook = epoch_end
+        frozen0 = ({k: v.clone() for k, v in state0.mvars["frozen"].state_dict().items()
+                    if ".adaptmlp." not in k} if name == "DMNSP" else None)
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _recorded_shapes(seen):
+            res = trainer.train_loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        for k, fn in hooks.items():
+            setattr(method, k, fn)
+        state, table = trainer.state, res["acc_table"]
+        flat = np.concatenate(losses)
+        steps = len(flat)
+        n_params = sum(p.numel() for p in (state.mvars["frozen"] if name == "DMNSP"
+                                           else state.params["backbone"]).parameters())
+        print(f"[gradproj {name}] {cfg['backbone']['name']} ({n_params} backbone parameters), "
+              f"batch {cfg['batch_size']}, {cfg['image_size']} px, steps "
+              f"{[len(x) for x in losses]} in {wall:.1f} s; losses {flat.round(4).tolist()}")
+        print(f"[gradproj {name}] acc table {table.tolist()}, last avg acc {res['last_avg_acc']}; "
+              f"boundary hooks' seconds {seconds} [{card}]")
+        _require(np.isfinite(flat).all(), f"{name}: non-finite loss")
+        _require(table.shape == (2, 2) and np.isfinite(table).all(), f"{name}: acc table not filled")
+        proj = checks.get("proj", {})
+        print(f"[gradproj {name}] projection at the first task-1 step (tolerance "
+              f"{PROJ_RESIDUAL_TOL}): " + ", ".join(f"{k} {v:.3e}" for k, v in proj.items()))
+        _require(len(proj) > 0 and all(v <= PROJ_RESIDUAL_TOL if "retain" not in k else v == 0.0
+                                       for k, v in proj.items()),
+                 f"{name}: a projected gradient leaves its subspace")
+        if name != "DMNSP":
+            print(f"[gradproj {name}] batch norms bitwise unchanged through task 1: "
+                  f"{checks.get('bn unchanged')}; bases (columns) "
+                  f"{[u.shape[1] for u in method._feature_list]}")
+            _require(checks.get("bn unchanged") is True, f"{name}: a batch norm moved in task 1")
+        if name == "TRGP":
+            print(f"[gradproj TRGP] trust regions (past tasks per layer) {method.selected}; "
+                  f"task-0 scales bitwise unchanged: {checks['task-0 scales unchanged']}; task-1 "
+                  f"scales moved per layer: {checks['task-1 scales moved']}")
+            _require(checks["task-0 scales unchanged"], "TRGP: another task's scales moved")
+            _require(any(checks["task-1 scales moved"]) == any(method.selected),
+                     "TRGP: the trust-region scales did not train")
+        if name == "API":
+            counts = method._ws_counts[:, 0]
+            bb = state.params["backbone"]
+            written = []
+            for li, n in enumerate(counts.tolist()):
+                slab = getattr(bb, f"ws{li}")[0]
+                mask = state.mvars["ws_mask"][li][0]
+                written.append(bool((slab[:, :n].norm(dim=0) > 0).all())
+                               and not bool(slab[:, n:].abs().sum())
+                               and mask.tolist() == [float(j < n) for j in range(method.k_slot)])
+            print(f"[gradproj API] retain ratios {np.round(method.per_layer_retain, 6).tolist()}, "
+                  f"expansion counts {counts.tolist()} (slots of {method.k_slot}), slots written "
+                  f"and masks set: {written}; project types {method._project_type}")
+            _require(all(written), "API: an expansion slot or mask is wrong")
+        if name == "DMNSP":
+            frozen1 = state.mvars["frozen"].state_dict()
+            same = all(torch.equal(v, frozen1[k]) for k, v in frozen0.items())
+            depth = len(state.mvars["frozen"].blocks)
+            print(f"[gradproj DMNSP] trunk ({len(frozen0)} tensors) bitwise unchanged: {same}; "
+                  f"basis columns {state.mvars['basis_n']}, lambdas "
+                  f"{state.mvars['lam'].cpu().numpy().round(4).tolist()}; kernel launches in the "
+                  f"run: {launches}")
+            _require(same, "DMNSP: the frozen trunk moved")
+            _require(depth == 12 and method.embed_dim == 768
+                     and state.mvars["frozen"].adapter_dim == 64, "DMNSP: not ViT-B/16 width")
+            _require(launches["qkv_bwd"] == (depth - 1) * steps
+                     and launches["qkv_fwd"] >= depth * steps,
+                     f"DMNSP: {launches} for {steps} steps")
+            dmnsp_launches = launches
+        else:
+            _require(not any(launches.values()), f"{name}: AlexNet launched a kernel: {launches}")
+        td = trainer.train_stream.task(1)
+        bs, lr = cfg["batch_size"], cfg["optimizer"]["kwargs"]["lr"]
+        batch = {"image": torch.from_numpy(td.images[:bs]).to(dev),
+                 "label": torch.from_numpy(td.labels[:bs].astype(np.int64)).to(dev),
+                 "weight": torch.ones(bs, device=dev)}
+        if name == "DMNSP":
+            phase_dmnsp_reference(method, state, batch, dev, card)
+        rates[name] = _step_rate(method, state, batch, lr)
+        kernels = _device_kernels_per_step(method, state, batch, lr)
+        print(f"[timing] {name} task-1 train step ({cfg['backbone']['name']} {cfg['dtype']}, batch "
+              f"{bs}, {cfg['image_size']} px): {rates[name]:.2f} img/s, {kernels:.0f} CUDA kernels "
+              f"a step [{card}]")
+        if name == "DMNSP":
+            _profile_step(method, state, batch, name, card, lr=lr)
+        print(f"[gradproj {name}] phase {time.perf_counter() - t_method:.1f} s")
+        del trainer, state, method, state0
+        torch.cuda.empty_cache()
+    print(f"[timing] gradient-projection methods' task-1 train steps: " + ", ".join(
+        f"{n} {r:.2f} img/s" for n, r in rates.items()) + f" [{card}]")
+    return dmnsp_launches, rates
+
+
+def phase_dmnsp_reference(method, state, batch, dev, card):
+    """One full-width DMNSP batch at task 1 with the projection on: the loss
+    and the projected adapter gradients through the kernels and through the
+    plain attention agree (``SLICE_TOL``); the kernels' launches of the pass
+    (wrapper counts) and of one train step (``torch.profiler``)."""
+    depth = len(state.mvars["frozen"].blocks)
+    _require(state.task == 1 and state.mvars["proj_on"], "DMNSP: not at task 1 with projection")
+    draws = method.draw(state, batch)
+    draw = method.draw
+    method.draw = lambda s, b: draws
+    x = method.augment(None, batch["image"], train=False)
+
+    def run():
+        state.params.zero_grad(set_to_none=True)
+        loss, _ = method.loss(state, dict(batch, x=x))
+        loss.backward()
+        method.transform_grads(state)
+        res = {"loss": loss.detach().reshape(1)}
+        res.update({k: p.grad.clone() for k, p in state.params["adapters"].named_parameters()})
+        return res
+
+    _reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = _launches()
+    _require(launches["qkv_fwd"] == depth and launches["qkv_bwd"] == depth - 1,
+             f"DMNSP reference pass launched {launches}")
+    with _plain_attention():
+        ref = run()
+    method.draw = draw
+    _compare("DMNSP", got, ref)
+    state.params.zero_grad(set_to_none=True)
+    names = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+    counts = _count_step_kernels(method, state, batch, 1e-3, names)
+    print(f"[gradproj DMNSP] one train step's attention kernels (torch.profiler): {counts} "
+          f"[{card}]")
+    _require(counts == dict(zip(names, (depth, depth - 1, depth - 1))),
+             f"DMNSP: the step launched {counts}")
+
+
 @contextlib.contextmanager
 def _captured_attention(blocks: list):
     """Within it, every packed-qkv and prefix attention call of the ViT
@@ -2449,6 +2753,10 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     print(f"[env] the online phases in {time.perf_counter() - t_online:.1f} s")
+    t_gradproj = time.perf_counter()
+    launches["DMNSP"], _ = phase_gradproj_methods(dev, card, seen)
+    torch.cuda.empty_cache()
+    print(f"[env] the gradient-projection phases in {time.perf_counter() - t_gradproj:.1f} s")
     t_gen = time.perf_counter()
     launches[GENERIC_PATH] = phase_generic_path(captures, dev, seen)
     del captures

@@ -26,6 +26,15 @@ Layout maps (the inverse of ``_load_timm_torch_into`` in
     ``backbone`` leaves stacked on a leading ``task_num`` axis, one slice per
     extractor, and its ``aux`` head; PRAKA's ``single`` head; OCM's ``proj``
     Dense) and their ``mvars`` (:func:`resnet_state_from_flax`);
+  * AlexNet's ``conv{i}_kernel`` (HWIO -> OIHW) and ``fc{i}_kernel``
+    (``(in, out)`` -> ``(out, in)``), ``bn{i}`` ``scale`` / ``bias`` and API's
+    ``ws{i}`` slabs; GPM's, TRGP's and API's bias-less head, TRGP's
+    ``tr_scale``, their ``mvars`` (``proj``, ``tr_space``, ``proj_sign``,
+    ``old_rows``, ``ws_mask``) and their host-side state (``_feature_list``,
+    ``_task_spaces``, ``_project_type``, ``_ws_counts``); DMNSP's adapters
+    (``adaptmlp`` ``down`` / ``up`` Dense -> Linear) in the ViT's blocks with
+    its ``basis``, ``basis_n``, ``P``, ``lam`` and ``proj_on``
+    (:func:`load_gradproj_state`);
   * the CLIP tree (both towers, ``ln_pre_n``, ``token_embedding``,
     ``pos_embed``, both projections, ``logit_scale``) and the MoE leaves
     (``w_gate``, ``w_noise``, ``down``, ``down_b``, ``up``, ``up_b``) as they
@@ -61,7 +70,10 @@ def _put(dst: torch.Tensor, value: torch.Tensor, name: str) -> None:
 
 def load_dense(lin: nn.Linear, p: Tree, name: str = "dense") -> None:
     _put(lin.weight, _tensor(p["kernel"]).T, f"{name}.kernel")
-    _put(lin.bias, _tensor(p["bias"]), f"{name}.bias")
+    if ("bias" in p) != (lin.bias is not None):
+        raise ValueError(f"{name}: bias on one side only")
+    if lin.bias is not None:
+        _put(lin.bias, _tensor(p["bias"]), f"{name}.bias")
 
 
 def load_layer_norm(ln: nn.LayerNorm, p: Tree, name: str = "norm") -> None:
@@ -265,6 +277,12 @@ def load_blocks(blocks: nn.ModuleList, p: Tree) -> None:
         load_layer_norm(blk.ln_2, b["ln_2"], f"block_{i}.ln_2")
         load_dense(blk.mlp.fc1, b["mlp"]["fc1"], f"block_{i}.mlp.fc1")
         load_dense(blk.mlp.fc2, b["mlp"]["fc2"], f"block_{i}.mlp.fc2")
+        if ("adaptmlp" in b) != (blk.adaptmlp is not None):
+            raise ValueError(f"block_{i}: adapter on one side only")
+        if blk.adaptmlp is not None:
+            for part in ("down", "up"):
+                load_dense(getattr(blk.adaptmlp, part), b["adaptmlp"][part],
+                           f"block_{i}.adaptmlp.{part}")
         if ("moe" in b) != (blk.moe is not None):
             raise ValueError(f"block_{i}: MoE experts on one side only")
         if blk.moe is not None:
@@ -369,4 +387,101 @@ def clip_state_from_flax(method, params: Tree, mvars: Tree, seed: int = 0):
         mv[key] = torch.from_numpy(np.asarray(mvars[key]).astype(np.int64)).to(dev)
     mv["replay_len"] = int(mvars["replay_len"])
     mv["old_adapter"] = {"kernel": _tensor(mvars["old_adapter"]["kernel"]).to(dev)}
+    return state
+
+
+# ------------------------------------------------------- gradient projection
+
+#: the host-side state of GPM, TRGP and API (attributes of the method)
+HOST_ATTRS = ("_feature_list", "_task_spaces", "_project_type", "_ws_counts")
+
+
+def load_alexnet(net: nn.Module, p: Tree) -> None:
+    """A flax ``AlexNetTRGP`` / ``AlexNetAPI`` param tree into the port's."""
+    for i in range(3):
+        _put(getattr(net, f"conv{i}"), _tensor(p[f"conv{i}_kernel"]).permute(3, 2, 0, 1),
+             f"conv{i}_kernel")
+    for i in (3, 4):
+        _put(getattr(net, f"fc{i}"), _tensor(p[f"fc{i}_kernel"]).T, f"fc{i}_kernel")
+    for i in range(5):
+        bn = getattr(net, f"bn{i}")
+        _put(bn.weight, _tensor(p[f"bn{i}"]["scale"]), f"bn{i}.scale")
+        _put(bn.bias, _tensor(p[f"bn{i}"]["bias"]), f"bn{i}.bias")
+    if ("ws0" in p) != hasattr(net, "ws0"):
+        raise ValueError("API's ws slabs on one side only")
+    for i in range(5 if "ws0" in p else 0):
+        _put(getattr(net, f"ws{i}"), _tensor(p[f"ws{i}"]), f"ws{i}")
+
+
+def _tensors(arrays, dev):
+    return [_tensor(a).to(dev) for a in arrays]
+
+
+def load_host_state(method, host: Dict[str, Any]) -> None:
+    """A method's host-side state (:data:`HOST_ATTRS`, as numpy): the bases
+    become float64 tensors on the method's device."""
+    dev = method.device
+    f64 = (lambda a: torch.from_numpy(np.array(a, dtype=np.float64)).to(dev))
+    if "_feature_list" in host:
+        method._feature_list = [f64(u) for u in host["_feature_list"]]
+    if "_task_spaces" in host:
+        method._task_spaces = [[f64(u) for u in task] for task in host["_task_spaces"]]
+    if "_project_type" in host:
+        method._project_type = list(host["_project_type"])
+    if "_ws_counts" in host:
+        method._ws_counts = np.array(host["_ws_counts"], dtype=np.int64)
+
+
+def load_gradproj_params(modules: nn.ModuleDict, p: Tree) -> None:
+    """GPM's, TRGP's, API's or DMNSP's trainable tree (``state.params``, or a
+    tree of the same shape such as its gradients) into the port's trainable
+    modules."""
+    load_dense(modules["head"].dense, p["head"]["Dense_0"], "head.Dense_0")
+    if "adapters" in p:
+        for blk, adapter in p["adapters"].items():
+            for part in ("down", "up"):
+                load_dense(getattr(modules["adapters"][blk], part), adapter[part],
+                           f"adapters.{blk}.{part}")
+        return
+    load_alexnet(modules["backbone"], p["backbone"])
+    if "tr_scale" in p:
+        for li, t in enumerate(p["tr_scale"]):
+            _put(modules["tr_scale"][li], _tensor(t), f"tr_scale[{li}]")
+
+
+def load_gradproj_state(method, state, params: Tree, mvars: Tree,
+                        host: Optional[Dict[str, Any]] = None) -> None:
+    """The JAX state of GPM, TRGP, API (on AlexNet) or DMNSP (on the adapter
+    ViT) into an existing port state, in place: ``params`` is
+    ``state.params`` and ``mvars`` is ``state.mvars``, both as numpy trees,
+    and ``host`` the method's host-side state (:data:`HOST_ATTRS`)."""
+    mv, dev = state.mvars, method.device
+    if "adapters" in params:  # DMNSP
+        full = {k: dict(v) if isinstance(v, dict) else v for k, v in mvars["frozen"].items()}
+        for blk, adapter in params["adapters"].items():
+            full[blk]["adaptmlp"] = adapter
+        load_vit(mv["frozen"], full)
+        load_dense(state.params["head"].dense, params["head"]["Dense_0"], "head.Dense_0")
+        mv["basis"], mv["P"], mv["lam"] = (_tensor(mvars[k]).to(dev) for k in ("basis", "P", "lam"))
+        mv["basis_n"] = [int(n) for n in np.asarray(mvars["basis_n"])]
+        mv["proj_on"] = bool(np.asarray(mvars["proj_on"]) > 0)
+        return
+    load_gradproj_params(state.params, params)
+    for key in ("proj", "tr_space", "old_rows", "ws_mask"):
+        if key in mvars:
+            mv[key] = _tensors(mvars[key], dev)
+    if "proj_sign" in mvars:
+        mv["proj_sign"] = _tensor(mvars["proj_sign"]).to(dev)
+    if "bn_trainable" in mvars:
+        mv["bn_trainable"] = bool(np.asarray(mvars["bn_trainable"]) > 0)
+    load_host_state(method, host or {})
+
+
+def gradproj_state_from_flax(method, params: Tree, mvars: Tree,
+                             host: Optional[Dict[str, Any]] = None, seed: int = 0):
+    """A port ``TrainState`` for GPM, TRGP, API or DMNSP holding the JAX
+    state's weights, method variables and host-side state
+    (:func:`load_gradproj_state`)."""
+    state = method.init_state(seed, (32, 32, 3))
+    load_gradproj_state(method, state, params, mvars, host)
     return state

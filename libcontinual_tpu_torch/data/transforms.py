@@ -38,6 +38,10 @@ NORM_PRESETS = {
     "imagenet": ([0.4914, 0.4822, 0.4465], [0.2023, 0.1994, 0.2010]),
     "imagenet_default": ([0.485, 0.456, 0.406], [0.229, 0.224, 0.225]),
     "none": ([0.0, 0.0, 0.0], [1.0, 1.0, 1.0]),
+    "alexnet_cifar": (
+        [125.3 / 255, 123.0 / 255, 113.9 / 255],
+        [63.0 / 255, 62.1 / 255, 66.7 / 255],
+    ),
     "clip": (
         [0.48145466, 0.4578275, 0.40821073],
         [0.26862954, 0.26130258, 0.27577711],
@@ -331,9 +335,9 @@ def build_transform(
     mode: str = "train",
     image_size: int = 32,
 ) -> Pipeline:
-    """A pipeline from a ``train_trfms``-style list, or the ViT, CLIP or
-    resnet-style preset of the JAX package's ``build_transform`` when no list
-    is given."""
+    """A pipeline from a ``train_trfms``-style list, or the ViT, CLIP,
+    AlexNet or resnet-style preset of the JAX package's ``build_transform``
+    when no list is given."""
     if spec is not None:
         return Pipeline([(name, dict(params or {})) for item in spec
                          for name, params in item.items()])
@@ -343,6 +347,9 @@ def build_transform(
                          ("Normalize", {"mean": mean, "std": std})])
     if backbone == "resnet":
         return Pipeline(_resnet_steps(dataset, mode))
+    if backbone == "alexnet":  # the same for train and test: no random step
+        mean, std = NORM_PRESETS["alexnet_cifar"]
+        return Pipeline([("Normalize", {"mean": mean, "std": std})])
     if backbone != "vit":
         raise NotImplementedError(
             f"preset transforms for backbone '{backbone}' are not in the PyTorch port yet"

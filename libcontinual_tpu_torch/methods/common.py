@@ -97,3 +97,26 @@ def batch_iter(images: np.ndarray, labels: np.ndarray, batch_size: int,
         yield (torch.from_numpy(np.ascontiguousarray(chunk_im)).to(device),
                torch.from_numpy(chunk_lb.astype(np.int64)).to(device),
                torch.from_numpy(w).to(device))
+
+
+def svd_driver(a: torch.Tensor):
+    """The cuSOLVER driver of the task-boundary SVDs: ``gesvd`` on the card,
+    none elsewhere. The default Jacobi driver does not converge on
+    rank-deficient activation residuals and falls back after seconds (API's
+    task-1 ``after_task`` on an H100: ``PERF.md``, PR 12)."""
+    return "gesvd" if a.is_cuda else None
+
+
+def svd(a: torch.Tensor, full_matrices: bool = True):
+    """``torch.linalg.svd`` with :func:`svd_driver`."""
+    return torch.linalg.svd(a, full_matrices=full_matrices, driver=svd_driver(a))
+
+
+def svdvals(a: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.svdvals`` with :func:`svd_driver`."""
+    return torch.linalg.svdvals(a, driver=svd_driver(a))
+
+
+def energy(s: torch.Tensor) -> float:
+    """The sum of the squared singular values, on the host."""
+    return float(torch.sum(s ** 2))

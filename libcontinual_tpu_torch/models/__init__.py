@@ -9,6 +9,7 @@ import torch
 from libcontinual_tpu_torch.registry import BACKBONES
 
 # importing the modules populates the registry
+from libcontinual_tpu_torch.models import alexnet as _alexnet  # noqa: F401
 from libcontinual_tpu_torch.models import cbam as _cbam  # noqa: F401
 from libcontinual_tpu_torch.models import clip as _clip  # noqa: F401
 from libcontinual_tpu_torch.models import resnet as _resnet  # noqa: F401

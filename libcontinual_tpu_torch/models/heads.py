@@ -14,22 +14,25 @@ from torch import nn
 
 class LinearHead(nn.Module):
     """f32 linear head; flax ``kaiming_uniform`` kernel (U(+-sqrt(6/fan_in)))
-    and zero bias."""
+    and zero bias (none with ``use_bias=False``: GPM, TRGP, API)."""
 
     def __init__(self, in_features: int, num_class: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_bias: bool = True):
         super().__init__()
-        self.dense = nn.Linear(in_features, num_class)
+        self.dense = nn.Linear(in_features, num_class, bias=use_bias)
         self.reset_parameters(generator)
 
     def reset_parameters(self, gen=None) -> None:
         limit = math.sqrt(6.0 / self.dense.in_features)
         with torch.no_grad():
             self.dense.weight.uniform_(-limit, limit, generator=gen)
-            self.dense.bias.zero_()
+            if self.dense.bias is not None:
+                self.dense.bias.zero_()
 
     def forward(self, feats):
-        return F.linear(feats.float(), self.dense.weight.float(), self.dense.bias.float())
+        bias = self.dense.bias
+        return F.linear(feats.float(), self.dense.weight.float(),
+                        None if bias is None else bias.float())
 
 
 class CosineLinear(nn.Module):

@@ -7,7 +7,10 @@ DAP), ``prefix_kv`` (per-block prompt keys and values in front of each
 head's keys: DualPrompt, CODA-Prompt) and ``feature_mode="prompt_mean"``.
 What the CLIP towers add: ``attn_mask`` (the text tower's causal mask),
 QuickGELU, the ``ln_pre`` stem norm and the mixture-of-adapter-experts MLP
-(``MoEMLP``, MoE-Adapter4CL) with its per-image routing.
+(``MoEMLP``, MoE-Adapter4CL) with its per-image routing. What DMNSP adds:
+the parallel bottleneck ``Adapter`` (``adapter_dim``) beside each block's
+MLP, and ``capture``, which returns each block's attention input ``ln_1(x)``
+or the adapter's input, the raw post-attention residual, in f32.
 
 Rounding points are the JAX package's: a residual stream in the compute
 dtype (bf16 on the card), LayerNorm statistics and arithmetic in f32 with
@@ -24,7 +27,7 @@ and with a 2-D mask the masked kernel of
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,6 +96,34 @@ class MLP(nn.Module):
             # tanh GELU at bf16 (equal to erf GELU at bf16 resolution), erf at f32
             x = F.gelu(x, approximate="tanh" if self.dtype == torch.bfloat16 else "none")
         return dense(self.fc2, x, self.dtype)
+
+
+class Adapter(nn.Module):
+    """Parallel bottleneck adapter: ``scale * up(dropout(relu(down(x))))``,
+    added to the MLP's output. ``down`` is drawn from flax
+    ``kaiming_uniform``, ``up`` starts at zero. The bottleneck dropout
+    (``dropout_rate``) takes its keep mask as an input (``keep``, booleans
+    shaped as the bottleneck activation); without it nothing is dropped."""
+
+    def __init__(self, dim: int, bottleneck: int, scale: float = 0.1, dtype=torch.bfloat16,
+                 dropout_rate: float = 0.1):
+        super().__init__()
+        self.scale, self.dtype, self.dropout_rate = scale, dtype, dropout_rate
+        self.down = nn.Linear(dim, bottleneck)
+        self.up = nn.Linear(bottleneck, dim)
+
+    def reset_parameters(self, gen=None) -> None:
+        limit = math.sqrt(6.0 / self.down.in_features)
+        with torch.no_grad():
+            self.down.weight.uniform_(-limit, limit, generator=gen)
+            for p in (self.down.bias, self.up.weight, self.up.bias):
+                p.zero_()
+
+    def forward(self, x, keep: Optional[torch.Tensor] = None):
+        h = torch.relu(dense(self.down, x, self.dtype))
+        if keep is not None and self.dropout_rate > 0.0:
+            h = h * keep.to(h.dtype) / (1.0 - self.dropout_rate)
+        return dense(self.up, h, self.dtype) * self.scale
 
 
 Prefix = Tuple[torch.Tensor, torch.Tensor]  # (pk, pv), each (B, P, D)
@@ -214,13 +245,16 @@ class MoEMLP(nn.Module):
 
 class ViTBlock(nn.Module):
     def __init__(self, dim, num_heads, mlp_ratio=4.0, dtype=torch.bfloat16, ln_eps=1e-6,
-                 act: str = "gelu", moe_experts: int = 0, moe_top_k: int = 2):
+                 act: str = "gelu", moe_experts: int = 0, moe_top_k: int = 2,
+                 adapter_dim: int = 0, adapter_scale: float = 0.1):
         super().__init__()
         self.dtype = dtype
         self.ln_1 = nn.LayerNorm(dim, eps=ln_eps)
         self.attn = ViTAttention(dim, num_heads, dtype)
         self.ln_2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = MLP(dim, int(dim * mlp_ratio), dtype, act)
+        self.adaptmlp = (Adapter(dim, adapter_dim, adapter_scale, dtype)
+                         if adapter_dim > 0 else None)
         self.moe = MoEMLP(dim, moe_experts, moe_top_k, dtype=dtype) if moe_experts > 0 else None
 
     def reset_parameters(self, gen=None) -> None:
@@ -228,19 +262,29 @@ class ViTBlock(nn.Module):
         self.ln_2.reset_parameters()
         self.attn.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
+        if self.adaptmlp is not None:
+            self.adaptmlp.reset_parameters(gen)
         if self.moe is not None:
             self.moe.reset_parameters(gen)
 
     def forward(self, x, prefix_kv: Optional[Prefix] = None,
                 attn_mask: Optional[torch.Tensor] = None,
                 gate_pos: Optional[torch.Tensor] = None, gate_index: int = 0,
-                moe_gen: Optional[torch.Generator] = None):
+                moe_gen: Optional[torch.Generator] = None, capture: bool = False,
+                adapter_keep: Optional[torch.Tensor] = None):
         """With MoE experts, returns ``(x, moe_aux)``. The experts route on
         the post-attention residual at ``gate_pos[b]`` (per image) or else
         at ``gate_index``; ``moe_gen`` draws their gate noise and dropout
-        (none without it)."""
-        x = x + self.attn(layer_norm(self.ln_1, x, self.dtype), prefix_kv, attn_mask)
+        (none without it). The adapter reads the raw post-attention residual
+        (not ``ln_2(x)``), with ``adapter_keep`` its dropout mask. With
+        ``capture`` (no MoE), returns ``(x, (ln_1(x), residual))`` in f32."""
+        ln1 = layer_norm(self.ln_1, x, self.dtype)
+        x = x + self.attn(ln1, prefix_kv, attn_mask)
         y = self.mlp(layer_norm(self.ln_2, x, self.dtype))
+        if self.adaptmlp is not None:
+            y = y + self.adaptmlp(x, adapter_keep)
+        if capture:
+            return x + y, (ln1.float(), x.float())
         if self.moe is None:
             return x + y
         if gate_pos is not None:
@@ -273,11 +317,14 @@ class VisionTransformer(nn.Module):
         act: str = "gelu",
         moe_experts: int = 0,
         moe_top_k: int = 2,
+        adapter_dim: int = 0,
+        adapter_scale: float = 0.1,
     ):
         super().__init__()
         self.patch_size, self.embed_dim = patch_size, embed_dim
         self.dtype = dtype
         self.moe_experts = moe_experts
+        self.adapter_dim, self.adapter_scale = adapter_dim, adapter_scale
         n_patches = (img_size // patch_size) ** 2
         self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
@@ -286,7 +333,7 @@ class VisionTransformer(nn.Module):
         self.ln_pre = nn.LayerNorm(embed_dim, eps=1e-5) if ln_pre else None
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, mlp_ratio, dtype, block_ln_eps, act,
-                     moe_experts, moe_top_k)
+                     moe_experts, moe_top_k, adapter_dim, adapter_scale)
             for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=final_ln_eps)
@@ -311,9 +358,20 @@ class VisionTransformer(nn.Module):
         feature_mode: str = "cls",
         prefix_kv: Optional[Dict[int, Prefix]] = None,
         moe_gen: Optional[torch.Generator] = None,
+        capture: bool = False,
+        capture_point: str = "attn",
+        adapter_keep: Optional[List[torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """``prefix_kv[i]``, where present, is block i's prompt (pk, pv);
-        ``moe_gen`` draws the MoE experts' training noise and dropout."""
+        ``moe_gen`` draws the MoE experts' training noise and dropout;
+        ``adapter_keep[i]`` is block i's adapter dropout mask. With
+        ``capture``, ``"attn_inputs"`` holds each block's ``ln_1(x)``
+        (``capture_point="attn"``) or its raw post-attention residual, the
+        adapter's input (``"mlp"``), in f32."""
+        if self.moe_experts > 0 and capture:
+            raise NotImplementedError("moe_experts > 0 does not support capture")
+        if capture_point not in ("attn", "mlp"):
+            raise ValueError(f"unknown capture_point {capture_point!r}")
         dt = self.dtype
         b = x.shape[0]
         pe = self.patch_embed
@@ -331,20 +389,27 @@ class VisionTransformer(nn.Module):
             n_prompt = prepend_tokens.shape[1]
             x = torch.cat([prepend_tokens.to(dt), x], dim=1)
         moe_aux = 0.0
+        attn_inputs = []
         for i, blk in enumerate(self.blocks):
             pkv = prefix_kv.get(i) if prefix_kv else None
+            keep = adapter_keep[i] if adapter_keep is not None else None
             if self.moe_experts > 0:
                 # the CLS token sits after any prepended prompts
-                x, aux = blk(x, pkv, gate_index=n_prompt, moe_gen=moe_gen)
+                x, aux = blk(x, pkv, gate_index=n_prompt, moe_gen=moe_gen, adapter_keep=keep)
                 moe_aux = moe_aux + aux
+            elif capture:
+                x, (ln1, residual) = blk(x, pkv, capture=True, adapter_keep=keep)
+                attn_inputs.append(residual if capture_point == "mlp" else ln1)
             else:
-                x = blk(x, pkv)
+                x = blk(x, pkv, adapter_keep=keep)
         x = layer_norm(self.norm, x, torch.float32)
         if feature_mode == "prompt_mean" and n_prompt > 0:
             feats = x[:, :n_prompt].mean(dim=1)
         else:
             feats = x[:, n_prompt, :]
         out = {"features": feats, "tokens": x}
+        if capture:
+            out["attn_inputs"] = attn_inputs
         if self.moe_experts > 0:
             out["moe_aux"] = moe_aux
         return out
@@ -359,9 +424,17 @@ class VisionTransformer(nn.Module):
     ),
 )
 def vitzoo(**kwargs):
+    # configs name the torch activation class (``act_layer: QuickGELU``,
+    # configs/dmnsp_vit.yaml)
+    act = str(kwargs.get("act_layer", kwargs.get("act", "gelu")))
     return VisionTransformer(
         img_size=int(kwargs.get("img_size", 224)),
+        adapter_dim=int(kwargs.get("adapter_dim", 0)),
+        # MoE-adapter experts (configs spell them ``experts_num``)
+        moe_experts=int(kwargs.get("moe_experts", kwargs.get("experts_num", 0)) or 0),
+        moe_top_k=int(kwargs.get("moe_top_k", 2)),
         dtype=kwargs.get("dtype", torch.bfloat16),
+        act="quick_gelu" if act.lower() in ("quickgelu", "quick_gelu") else "gelu",
         block_ln_eps=float(kwargs.get("block_ln_eps", 1e-6)),
         final_ln_eps=float(kwargs.get("final_ln_eps", 1e-6)),
         generator=kwargs.get("generator"),
@@ -370,9 +443,18 @@ def vitzoo(**kwargs):
 
 @BACKBONES.register("vit_tiny_test")
 def vit_tiny_test(**kwargs):
-    """Small ViT for unit tests (32x32/patch 8, 4 blocks)."""
+    """Small ViT for unit tests (32x32/patch 8, 4 blocks). Reads the JAX
+    factory's kwargs: ``adapter_dim``, ``dtype`` and the LayerNorm eps (and
+    no activation: GELU always); SSF (``ssf``) and VPT-deep (``vpt_len``)
+    are not in the port yet."""
+    for key in ("ssf", "vpt_len"):
+        if kwargs.get(key):
+            raise NotImplementedError(
+                f"{key}: the ViT's SSF and VPT variants are not in the PyTorch port yet "
+                "(ROADMAP Queue 1 item 9)")
     return VisionTransformer(
         img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=4,
+        adapter_dim=int(kwargs.get("adapter_dim", 0)),
         dtype=kwargs.get("dtype", torch.float32),
         block_ln_eps=float(kwargs.get("block_ln_eps", 1e-6)),
         final_ln_eps=float(kwargs.get("final_ln_eps", 1e-6)),

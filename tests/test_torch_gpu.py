@@ -234,6 +234,93 @@ def test_moe_adapter_step_launches_the_masked_backward_per_text_block(cuda):
     assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1}
 
 
+class _PlainQKV(torch.autograd.Function):
+    """The packed attention's plain forward and backward as one autograd
+    function: the reference of a whole-step comparison."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale, heads):
+        ctx.save_for_backward(qkv)
+        ctx.scale, ctx.heads = scale, heads
+        return T.qkv_attention_plain(qkv, scale, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return T.qkv_attention_bwd_plain(qkv, g.contiguous(), ctx.scale, ctx.heads), None, None
+
+
+#: a whole DMNSP step in bf16, kernels against the plain attention: relative
+#: L2 error of the loss and of each adapter gradient (``chip_smoke.py``'s
+#: whole-batch tolerance)
+STEP_TOL = 5e-2
+
+
+def test_dmnsp_step_kernels_match_plain_attention(cuda, monkeypatch):
+    """One DMNSP batch at task 1 with the projection on, on a bf16
+    ``vit_tiny_test`` with 8-wide adapters: the loss and the projected
+    adapter gradients through the packed kernels agree with the plain
+    attention's; the step launches the forward in every block and the
+    backward in all but block 0 (whose attention input depends on frozen
+    weights only)."""
+    import numpy as np
+
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.data.continual import TaskData
+    from libcontinual_tpu_torch.methods.dmnsp import DMNSP
+    from libcontinual_tpu_torch.models import vit
+
+    norm = [{"Normalize": {"mean": [0.5, 0.5, 0.5], "std": [0.25, 0.25, 0.25]}}]
+    cfg = Config(overrides={
+        "dataset": "synthetic", "data_root": "", "image_size": 32, "task_num": 2,
+        "init_cls_num": 4, "inc_cls_num": 4, "batch_size": 16, "dtype": "bfloat16",
+        "train_trfms": norm, "test_trfms": norm,
+        "backbone": {"name": "vit_tiny_test", "kwargs": {"adapter_dim": 8}},
+        "classifier": {"name": "DMNSP", "kwargs": {"num_class": 8, "feat_dim": 64,
+                                                   "embd_dim": 64}},
+        "optimizer": {"name": "SGD", "kwargs": {"lr": 0.05}},
+    }).get_config_dict()
+    method = DMNSP(cfg, cuda)
+    state = method.init_state(0, (32, 32, 3))
+    rng = np.random.RandomState(0)
+    tasks = [TaskData(rng.randint(0, 256, (32, 32, 32, 3)).astype(np.uint8),
+                      np.repeat(np.arange(lo, lo + 4), 8).astype(np.int32), lo, lo + 4)
+             for lo in (0, 4)]
+    batches = [{"image": torch.from_numpy(td.images[::2]).to(cuda),
+                "label": torch.from_numpy(td.labels[::2].astype(np.int64)).to(cuda),
+                "weight": torch.ones(16, device=cuda)} for td in tasks]
+    state, _ = method.train_step(state, batches[0], 0.05)  # up leaves zero: down gets gradients
+    state = method.after_task(state, 0, tasks[0])
+    state = method.before_task(method.start_task(state, 1, 4, 8), 1, tasks[1])
+    assert state.mvars["proj_on"]
+    batch = batches[1]
+    draws = method.draw(state, batch)
+    method.draw = lambda s, b: draws
+
+    def loss_and_grads():
+        state.params.zero_grad(set_to_none=True)
+        x = method.augment(None, batch["image"], train=False)
+        loss, _ = method.loss(state, dict(batch, x=x))
+        loss.backward()
+        method.transform_grads(state)
+        return loss.detach(), {k: p.grad.clone() for k, p in
+                               state.params["adapters"].named_parameters()}
+
+    T.reset_launches()
+    got = loss_and_grads()
+    torch.cuda.synchronize()
+    depth = len(state.mvars["frozen"].blocks)
+    assert (T.LAUNCHES["qkv_fwd"], T.LAUNCHES["qkv_bwd"]) == (depth, depth - 1)
+    monkeypatch.setattr(vit, "fused_qkv_attention", _PlainQKV.apply)
+    T.reset_launches()
+    ref = loss_and_grads()
+    assert not any(T.LAUNCHES.values())
+    assert float((got[0] - ref[0]).abs()) <= STEP_TOL * float(ref[0].abs())
+    for k, g in ref[1].items():
+        assert float(g.norm()) > 0, k
+        assert float((got[1][k] - g).norm()) <= STEP_TOL * float(g.norm()), k
+
+
 #: the conv kernels: bf16 inputs and f32 sums in both, a different sum order;
 #: relative to the largest magnitude, as above (dw is f32 in both)
 CONV_SHAPES = [(3, 5, 7, 3, 8), (2, 9, 6, 20, 24), (2, 4, 4, 20, 24), (5, 3, 3, 7, 70),

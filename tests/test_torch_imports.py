@@ -53,6 +53,13 @@ MODULES = [
     "libcontinual_tpu_torch.config",
     "libcontinual_tpu_torch.tools.bench_attention",
     "libcontinual_tpu_torch.tools.exp_flash_kernel",
+    "libcontinual_tpu_torch.models.alexnet",
+    "libcontinual_tpu_torch.models.vit",
+    "libcontinual_tpu_torch.methods.gpm",
+    "libcontinual_tpu_torch.methods.trgp",
+    "libcontinual_tpu_torch.methods.api",
+    "libcontinual_tpu_torch.methods.dualgpm",
+    "libcontinual_tpu_torch.methods.dmnsp",
 ]
 
 

@@ -125,3 +125,101 @@ def test_initial_distributions_match_jax():
     head = LinearHead(256, 10, generator=torch.Generator().manual_seed(0))
     assert float(head.dense.weight.detach().abs().max()) <= np.sqrt(6.0 / 256)
     assert abs(_std(head.dense.weight.detach()) - np.sqrt(2.0 / 256)) < 0.1 * np.sqrt(2.0 / 256)
+
+
+# ------------------------------------------------- adapters and capture
+
+
+def _adapter_pair(builder):
+    """A 4-block ViT with 8-wide adapters and the same weights on both
+    sides, the adapters' ``up`` drawn at random (it starts at zero, which
+    would hide the adapter)."""
+    if builder == "factory":  # both factories read adapter_dim and ignore act_layer
+        kw = dict(adapter_dim=8, act_layer="QuickGELU", block_ln_eps=1e-5)
+        jm = jvit.vit_tiny_test(dtype=jnp.float32, **kw)
+        tm = tvit.vit_tiny_test(dtype=torch.float32, **kw)
+    else:  # QuickGELU in the blocks' MLP
+        kw = dict(img_size=32, patch_size=8, embed_dim=64, depth=4, num_heads=4, adapter_dim=8,
+                  act="quick_gelu", block_ln_eps=1e-5)
+        jm = jvit.VisionTransformer(dtype=jnp.float32, **kw)
+        tm = tvit.VisionTransformer(dtype=torch.float32, **kw)
+    x = np.random.RandomState(0).rand(3, 32, 32, 3).astype(np.float32)
+    params = jax.tree_util.tree_map(np.array, jm.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                                                      train=False)["params"])
+    rng = np.random.RandomState(5)
+    for i in range(4):
+        up = params[f"block_{i}"]["adaptmlp"]["up"]
+        up["kernel"] = (rng.randn(*up["kernel"].shape) * 0.2).astype(np.float32)
+        up["bias"] = (rng.randn(*up["bias"].shape) * 0.1).astype(np.float32)
+    convert.load_vit(tm, params)
+    return jm, params, tm, x
+
+
+#: f32, the same arithmetic in another summation order (rtol, and atol for
+#: entries near zero)
+ADAPTER_TOL = 1e-5
+
+
+@pytest.mark.parametrize("builder", ["factory", "quick_gelu"])
+@pytest.mark.parametrize("capture_point", ["attn", "mlp"])
+def test_adapter_vit_features_and_capture_match_jax(builder, capture_point):
+    """Features and ``attn_inputs`` (each block's ``ln_1(x)``, or the raw
+    post-attention residual the adapter reads), in evaluation and in
+    training with the JAX adapter dropout masks fed in."""
+    from test_torch_alexnet import recorded_bernoulli
+
+    jm, params, tm, x = _adapter_pair(builder)
+    assert tm.blocks[0].mlp.act == ("gelu" if builder == "factory" else "quick_gelu")
+    for train in (False, True):
+        drawn = []
+        with recorded_bernoulli(drawn):
+            out_j = jm.apply({"params": params}, jnp.asarray(x), train=train, capture=True,
+                             capture_point=capture_point,
+                             rngs={"dropout": jax.random.PRNGKey(3)} if train else None)
+        keep = [torch.from_numpy(np.array(m)) for m in drawn] if train else None
+        assert len(drawn) == (4 if train else 0)
+        out_t = tm(torch.from_numpy(x), capture=True, capture_point=capture_point,
+                   adapter_keep=keep)
+        np.testing.assert_allclose(out_t["features"].detach().numpy(),
+                                   np.asarray(out_j["features"]), rtol=ADAPTER_TOL,
+                                   atol=ADAPTER_TOL)
+        assert len(out_t["attn_inputs"]) == 4
+        for i, (a, b) in enumerate(zip(out_t["attn_inputs"], out_j["attn_inputs"])):
+            assert a.dtype == torch.float32
+            np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=ADAPTER_TOL,
+                                       atol=ADAPTER_TOL, err_msg=f"{train} block {i}")
+
+
+def test_vit_factories_read_the_jax_kwargs(monkeypatch):
+    """``vitzoo`` and ``vit_tiny_test`` hand the model what the JAX factories
+    hand theirs: adapters, QuickGELU (``act_layer``), the MoE experts
+    (``experts_num``) and top-k, both LayerNorm eps."""
+    monkeypatch.setattr(tvit, "VisionTransformer", lambda **kw: kw)
+    fields = ("img_size", "adapter_dim", "moe_experts", "moe_top_k", "act", "block_ln_eps",
+              "final_ln_eps")
+    kw = dict(img_size=32, adapter_dim=64, act_layer="QuickGELU", experts_num=2, moe_top_k=1,
+              block_ln_eps=1e-5, final_ln_eps=1e-5)
+    jm, tm = jvit.vitzoo(**kw), tvit.vitzoo(**kw)
+    assert {f: tm[f] for f in fields} == {f: getattr(jm, f) for f in fields}
+    assert tm["act"] == "quick_gelu" and tm["moe_experts"] == 2
+    kw = dict(adapter_dim=8, block_ln_eps=1e-5, final_ln_eps=1e-4)
+    jm, tm = jvit.vit_tiny_test(**kw), tvit.vit_tiny_test(**kw)
+    fields = ("img_size", "patch_size", "embed_dim", "depth", "num_heads", "adapter_dim",
+              "block_ln_eps", "final_ln_eps")
+    assert {f: tm[f] for f in fields} == {f: getattr(jm, f) for f in fields}
+
+
+@pytest.mark.parametrize("kwargs", [{"ssf": True}, {"vpt_len": 5}])
+def test_unported_vit_variants_raise(kwargs):
+    """SSF and VPT-deep are not in the port: the factory refuses them (the
+    JAX factory builds them), citing its ROADMAP item."""
+    jvit.vit_tiny_test(**kwargs)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tvit.vit_tiny_test(**kwargs)
+
+
+def test_moe_vit_refuses_capture():
+    tm = tvit.VisionTransformer(img_size=16, patch_size=8, embed_dim=32, depth=1, num_heads=2,
+                                moe_experts=2, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="capture"):
+        tm(torch.rand(1, 16, 16, 3), capture=True)
