@@ -1,0 +1,10 @@
+"""The harness's tests run from the repository root or from here: both put
+the repository on the import path."""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+for path in (os.path.dirname(os.path.dirname(HERE)), HERE):
+    if path not in sys.path:
+        sys.path.insert(0, path)
