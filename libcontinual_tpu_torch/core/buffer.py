@@ -27,6 +27,7 @@ import torch
 from libcontinual_tpu_torch.data import native
 from libcontinual_tpu_torch.data.continual import TaskData
 from libcontinual_tpu_torch.registry import BUFFERS
+from libcontinual_tpu_torch.utils.trace import TRACER
 
 
 def _herding_order(feats: torch.Tensor) -> torch.Tensor:
@@ -132,6 +133,9 @@ class LinearBuffer:
             feats = feats / (np.linalg.norm(feats, axis=1, keepdims=True) + 1e-12)
             order = _herding_order(torch.from_numpy(feats).to(self.device)).cpu().numpy()
             pick = sel[order[: min(per_cls, len(sel))]]
+            # the search runs over every candidate of the class to keep per_cls
+            TRACER.count("buffer.herding_iters", len(sel), cls=c)
+            TRACER.count("buffer.exemplars_kept", len(pick), cls=c)
             self._append(task_data.images[pick], task_data.labels[pick])
 
     def _random_update(self, task_data: TaskData, seed: int):

@@ -15,7 +15,10 @@ and, after ``opt.step()``, restores their values (so the optimizer's own
 weight decay cannot move them either), and ``post_update`` sees the new
 state. ``_tx_for_task`` chooses a task's optimizer and
 ``trainable_parameters`` the parameters it covers (the optimizer is rebuilt
-every task).
+every task). While the tracer records (``utils/trace.py``), ``train_step``'s
+parts are the spans ``step.augment``, ``step.forward`` (``loss``),
+``step.backward`` (with ``transform_grads``) and ``step.optimizer`` (the
+masks, ``set_lr``, ``opt.step()`` and the restore).
 
 The defaults are the JAX base class's, Finetune's semantics: a backbone with
 running statistics (``params["backbone"]``, its BatchNorm statistics as
@@ -39,6 +42,7 @@ from libcontinual_tpu_torch.data.transforms import build_transform
 from libcontinual_tpu_torch.models import backbone_feat_dim, compute_dtype, get_backbone
 from libcontinual_tpu_torch.models.heads import LinearHead
 from libcontinual_tpu_torch.utils.seeding import make_generator
+from libcontinual_tpu_torch.utils.trace import TRACER
 
 
 def masked_cross_entropy(
@@ -276,26 +280,30 @@ class Method:
 
     def train_step(self, state: TrainState, batch, lr: float):
         batch = dict(batch)
-        batch["x"] = self.augment(state.rng, batch["image"], train=True)
-        loss, aux = self.loss(state, batch)
+        with TRACER.span("step.augment"):
+            batch["x"] = self.augment(state.rng, batch["image"], train=True)
+        with TRACER.span("step.forward"):
+            loss, aux = self.loss(state, batch)
         opt = state.opt_state
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.transform_grads(state)
-        frozen = []
-        mask = self.trainable_mask(state)
-        if mask:
-            with torch.no_grad():
-                for p, m in mask.items():
-                    if p.grad is not None:
-                        p.grad.mul_(m)
-                    frozen.append((p, m > 0, p.detach().clone()))
-        set_lr(opt, lr)
-        opt.step()
-        if frozen:
-            with torch.no_grad():
-                for p, keep, before in frozen:
-                    p.copy_(torch.where(keep, p, before))
+        with TRACER.span("step.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            self.transform_grads(state)
+        with TRACER.span("step.optimizer"):
+            frozen = []
+            mask = self.trainable_mask(state)
+            if mask:
+                with torch.no_grad():
+                    for p, m in mask.items():
+                        if p.grad is not None:
+                            p.grad.mul_(m)
+                        frozen.append((p, m > 0, p.detach().clone()))
+            set_lr(opt, lr)
+            opt.step()
+            if frozen:
+                with torch.no_grad():
+                    for p, keep, before in frozen:
+                        p.copy_(torch.where(keep, p, before))
         state.step += 1
         state = self.post_update(state, batch, aux)
         with torch.no_grad():

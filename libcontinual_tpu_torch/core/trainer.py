@@ -12,11 +12,18 @@ bookkeeping as the JAX trainer, on one device:
   * an epoch is a Python loop of train steps, the per-step learning rate
     passed in as data;
   * evaluation fills the acc table, forgetting and BWT as the JAX trainer
-    does.
+    does;
+  * spans (``utils/trace.py``) cover the build, each task, epoch and step,
+    the task boundary and evaluation; ``profile: true`` records them for the
+    whole run, writes them to ``events.jsonl`` at the end, and writes a
+    ``torch.profiler`` Chrome trace of task 0's second epoch (its first if
+    it has only one) to ``save_path``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -31,6 +38,7 @@ from libcontinual_tpu_torch.data import native
 from libcontinual_tpu_torch.data.continual import TaskData, build_stream
 from libcontinual_tpu_torch.registry import METHODS
 from libcontinual_tpu_torch.utils import get_logger, init_seed
+from libcontinual_tpu_torch.utils.trace import TRACER
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -59,7 +67,13 @@ class Trainer:
         init_seed(seed, bool(config.get("deterministic", True)))
         if (config.get("checkpoint") or {}).get("enable"):
             raise NotImplementedError("checkpoints are not in the PyTorch port yet")
+        self.profile = bool(config.get("profile"))
+        #: the recording period of a ``profile: true`` run, until train_loop ends it
+        self._trace_period = TRACER.begin() if self.profile else None
+        with TRACER.span("trainer.build"):
+            self._build(config, seed)
 
+    def _build(self, config: Dict[str, Any], seed: int) -> None:
         self.task_num = int(config["task_num"])
         self.init_cls_num = int(config["init_cls_num"])
         self.inc_cls_num = int(config["inc_cls_num"])
@@ -70,16 +84,19 @@ class Trainer:
         self.init_epoch = int(config.get("init_epoch", config["epoch"]))
         self.inc_epoch = int(config["epoch"])
 
-        self.train_stream, cls_map = build_stream(config, "train")
-        self.test_stream, _ = build_stream(config, "test", cls_map)
+        with TRACER.span("trainer.streams"):
+            self.train_stream, cls_map = build_stream(config, "train")
+            self.test_stream, _ = build_stream(config, "test", cls_map)
 
         self.buffer: LinearBuffer = build_buffer(config, self.device)
-        self.method = METHODS.get(config["classifier"]["name"])(config, self.device)
+        with TRACER.span("method.build"):
+            self.method = METHODS.get(config["classifier"]["name"])(config, self.device)
         # the CLIP methods' class prompts read the stream's class names
         self.method.class_names = getattr(self.train_stream, "class_names", [])
 
         hwc = self.train_stream.task(0).images.shape[1:]
-        self.state = self.method.init_state(seed, hwc)
+        with TRACER.span("method.init_state"):
+            self.state = self.method.init_state(seed, hwc)
         self.acc_table = np.zeros((self.task_num, self.task_num))
         self._dev_data_cache: Dict[int, Any] = {}
 
@@ -116,61 +133,85 @@ class Trainer:
 
     # ------------------------------------------------------------------ train
 
+    def _epoch_profiler(self, task_idx: int, epoch_idx: int, epochs: int):
+        """A ``profile: true`` run's ``torch.profiler`` over task 0's epoch 1
+        (epoch 0 of a one-epoch task), written as a Chrome trace to
+        ``save_path``; else a null context."""
+        save = self.config.get("save_path")
+        if not (self.profile and save and task_idx == 0 and epoch_idx == min(1, epochs - 1)):
+            return contextlib.nullcontext()
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda"
+                                         else [])
+        path = os.path.join(save, f"trace_task{task_idx}_epoch{epoch_idx}.json")
+        self.log.info("profiler trace of task %d epoch %d -> %s", task_idx, epoch_idx, path)
+        return profile(activities=acts, on_trace_ready=lambda p: p.export_chrome_trace(path))
+
     def _train_task(self, task_idx: int, task_data: TaskData, sched, epochs: int) -> None:
         method = self.method
         n = len(task_data)
-        images, labels = self._device_task_data(task_data)
         seed = int(self.config.get("seed", 0))
         for epoch_idx in range(epochs):
-            idx, weights = self._epoch_indices(n, seed + task_idx * 100003 + epoch_idx)
-            lrs = sched.step_lrs(epoch_idx)
-            steps = idx.shape[0]
-            if len(lrs) < steps:
-                lrs = np.resize(lrs, steps)
-            lrs = lrs[:steps].astype(np.float32)
-            idx_d = torch.from_numpy(idx).to(self.device)
-            w_d = torch.from_numpy(weights).to(self.device)
+            with self._epoch_profiler(task_idx, epoch_idx, epochs), \
+                    TRACER.span("trainer.epoch", task=task_idx, epoch=epoch_idx):
+                with TRACER.span("epoch.prepare"):
+                    if epoch_idx == 0:  # the task's images go to the device once
+                        images, labels = self._device_task_data(task_data)
+                    idx, weights = self._epoch_indices(n, seed + task_idx * 100003 + epoch_idx)
+                    lrs = sched.step_lrs(epoch_idx)
+                    steps = idx.shape[0]
+                    if len(lrs) < steps:
+                        lrs = np.resize(lrs, steps)
+                    lrs = lrs[:steps].astype(np.float32)
+                    idx_d = torch.from_numpy(idx).to(self.device)
+                    w_d = torch.from_numpy(weights).to(self.device)
 
-            t0 = time.perf_counter()
-            losses, accs = [], []
-            for s in range(steps):
-                batch = {"image": images[idx_d[s]], "label": labels[idx_d[s]], "weight": w_d[s]}
-                self.state, m = method.train_step(self.state, batch, float(lrs[s]))
-                losses.append(m["loss"])
-                accs.append(m["acc"])
-            ms = {
-                "loss": torch.stack(losses).float().cpu().numpy(),
-                "acc": torch.stack(accs).float().cpu().numpy(),
-                "w": weights.sum(axis=1),
-            }
-            self._sync()
-            dt = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                losses, accs = [], []
+                for s in range(steps):
+                    with TRACER.span("trainer.step", step=s):
+                        with TRACER.span("step.batch"):
+                            batch = {"image": images[idx_d[s]], "label": labels[idx_d[s]],
+                                     "weight": w_d[s]}
+                        self.state, m = method.train_step(self.state, batch, float(lrs[s]))
+                        losses.append(m["loss"])
+                        accs.append(m["acc"])
+                with TRACER.span("epoch.drain"):
+                    ms = {
+                        "loss": torch.stack(losses).float().cpu().numpy(),
+                        "acc": torch.stack(accs).float().cpu().numpy(),
+                        "w": weights.sum(axis=1),
+                    }
+                    self._sync()
+                dt = time.perf_counter() - t0
 
-            wsum = float(np.sum(ms["w"])) or 1.0
-            ep_loss = float(np.sum(ms["loss"] * ms["w"]) / wsum)
-            ep_acc = float(np.sum(ms["acc"] * ms["w"]) / wsum)
-            if self.epoch_hook is not None:
-                self.epoch_hook(task_idx, epoch_idx, self.state, ms["loss"])
-            ips = wsum / dt
-            self.log.info(
-                "Task %d epoch [%d/%d] lr %.5f | loss %.4f acc %.2f | %.0f img/s",
-                task_idx, epoch_idx, epochs, float(lrs[0]), ep_loss, ep_acc * 100, ips,
-            )
-            self.log.event(
-                "train_epoch", task=task_idx, epoch=epoch_idx, loss=ep_loss,
-                acc=ep_acc, images_per_sec=ips, lr=float(lrs[0]),
-            )
-            if (
-                method.validate_enabled
-                and self.val_per_epoch > 0
-                and (epoch_idx + 1) % self.val_per_epoch == 0
-                and bool(self.config.get("eval_with_test", True))
-                and epochs > 1
-                and epoch_idx + 1 < epochs
-            ):
-                res = self._validate(task_idx)
-                self.log.info(" * val: avg %.2f per-task %s", res["avg_acc"], res["per_task_acc"])
-            sched.observe(ep_loss)
+                wsum = float(np.sum(ms["w"])) or 1.0
+                ep_loss = float(np.sum(ms["loss"] * ms["w"]) / wsum)
+                ep_acc = float(np.sum(ms["acc"] * ms["w"]) / wsum)
+                if self.epoch_hook is not None:
+                    self.epoch_hook(task_idx, epoch_idx, self.state, ms["loss"])
+                ips = wsum / dt
+                self.log.info(
+                    "Task %d epoch [%d/%d] lr %.5f | loss %.4f acc %.2f | %.0f img/s",
+                    task_idx, epoch_idx, epochs, float(lrs[0]), ep_loss, ep_acc * 100, ips,
+                )
+                self.log.event(
+                    "train_epoch", task=task_idx, epoch=epoch_idx, loss=ep_loss,
+                    acc=ep_acc, images_per_sec=ips, lr=float(lrs[0]),
+                )
+                if (
+                    method.validate_enabled
+                    and self.val_per_epoch > 0
+                    and (epoch_idx + 1) % self.val_per_epoch == 0
+                    and bool(self.config.get("eval_with_test", True))
+                    and epochs > 1
+                    and epoch_idx + 1 < epochs
+                ):
+                    res = self._validate(task_idx)
+                    self.log.info(" * val: avg %.2f per-task %s", res["avg_acc"],
+                                  res["per_task_acc"])
+                sched.observe(ep_loss)
             if sched.should_stop():
                 self.log.info("PatienceSchedule lr below stopping_lr; ending task")
                 break
@@ -192,18 +233,20 @@ class Trainer:
             batch = {"image": images[idx[s]], "label": labels[idx[s]]}
             preds = self.method.eval_step(self.state, batch, task_id)
             correct += ((preds == batch["label"]).float() * weights[s]).sum()
+        TRACER.count("eval.images", n)
         return int(round(float(correct))), n
 
     def _validate(self, task_idx: int) -> Dict[str, Any]:
         """Per-task accuracies on tasks 0..task_idx."""
         per_task_acc: List[float] = []
         correct_all, count_all = 0, 0
-        for t, td in enumerate(self.test_stream.tasks_up_to(task_idx)):
-            tid = t if self.setting == "task-aware" else -1
-            c, n = self._eval_task_data(td, tid)
-            correct_all += c
-            count_all += n
-            per_task_acc.append(round(c * 100.0 / max(n, 1), 2))
+        with TRACER.span("trainer.eval", task=task_idx):
+            for t, td in enumerate(self.test_stream.tasks_up_to(task_idx)):
+                tid = t if self.setting == "task-aware" else -1
+                c, n = self._eval_task_data(td, tid)
+                correct_all += c
+                count_all += n
+                per_task_acc.append(round(c * 100.0 / max(n, 1), 2))
         return {
             "avg_acc": round(correct_all * 100.0 / max(count_all, 1), 2),
             "per_task_acc": per_task_acc,
@@ -212,6 +255,17 @@ class Trainer:
     # -------------------------------------------------------------- main loop
 
     def train_loop(self) -> Dict[str, Any]:
+        """Every task in turn; a ``profile: true`` run's spans and counters
+        go to ``events.jsonl`` at the end."""
+        try:
+            return self._train_loop()
+        finally:
+            period, self._trace_period = self._trace_period, None
+            if period is not None:
+                TRACER.end()
+                period.export(self.log)
+
+    def _train_loop(self) -> Dict[str, Any]:
         cfg = self.config
         t_begin = time.time()
         method = self.method
@@ -219,50 +273,54 @@ class Trainer:
         task_last_acc_list = np.zeros(self.task_num)
         frgt_list, bwt_list = [], []
         for task_idx in range(self.task_num):
-            self.log.info("================ Task %d start ================", task_idx)
-            lo, hi = self.train_stream.class_range(task_idx)
-            task_data = self.train_stream.task(task_idx)
-            self.state = method.start_task(self.state, task_idx, lo, hi)
-            self.state = method.before_task(self.state, task_idx, task_data)
-            train_data = self._train_data(task_idx, task_data)
-            self.state = method.reset_optimizer(self.state, task_idx)
-            steps_per_epoch = _ceil_div(len(train_data), self.batch_size)
-            epochs = method.epochs_for_task(
-                task_idx, self.init_epoch if task_idx == 0 else self.inc_epoch)
-            sched = method.override_schedule(task_idx, steps_per_epoch, epochs)
-            if sched is None:
-                sched = make_schedule(cfg, steps_per_epoch, epochs, task_idx)
-            self.log.info(
-                "training samples: %d | params: %d",
-                len(train_data), count_parameters(self.state.params),
-            )
-            if epochs > 0:
-                self._train_task(task_idx, train_data, sched, epochs)
-            self.state = method.after_task(self.state, task_idx, task_data)
-            self._update_buffer(task_idx, task_data)
-            self.state = method.extra_phases(self, self.state, task_idx, task_data)
+            with TRACER.span("trainer.task", task=task_idx):
+                self.log.info("================ Task %d start ================", task_idx)
+                lo, hi = self.train_stream.class_range(task_idx)
+                task_data = self.train_stream.task(task_idx)
+                self.state = method.start_task(self.state, task_idx, lo, hi)
+                self.state = method.before_task(self.state, task_idx, task_data)
+                train_data = self._train_data(task_idx, task_data)
+                self.state = method.reset_optimizer(self.state, task_idx)
+                steps_per_epoch = _ceil_div(len(train_data), self.batch_size)
+                epochs = method.epochs_for_task(
+                    task_idx, self.init_epoch if task_idx == 0 else self.inc_epoch)
+                sched = method.override_schedule(task_idx, steps_per_epoch, epochs)
+                if sched is None:
+                    sched = make_schedule(cfg, steps_per_epoch, epochs, task_idx)
+                self.log.info(
+                    "training samples: %d | params: %d",
+                    len(train_data), count_parameters(self.state.params),
+                )
+                if epochs > 0:
+                    self._train_task(task_idx, train_data, sched, epochs)
+                with TRACER.span("trainer.boundary"):
+                    with TRACER.span("method.after_task"):
+                        self.state = method.after_task(self.state, task_idx, task_data)
+                    self._update_buffer(task_idx, task_data)
+                    with TRACER.span("method.extra_phases"):
+                        self.state = method.extra_phases(self, self.state, task_idx, task_data)
 
-            res = self._validate(task_idx)
-            per_task_acc = np.asarray(res["per_task_acc"])
-            batch_last_acc_list[task_idx] = res["avg_acc"]
-            task_last_acc_list[task_idx] = float(np.mean(per_task_acc))
-            self.acc_table[task_idx, : task_idx + 1] = per_task_acc
-            frgt = compute_frgt(self.acc_table, self.acc_table[task_idx], task_idx)
-            bwt = compute_bwt(self.acc_table, self.acc_table[task_idx], task_idx)
-            if task_idx > 1:
-                frgt_list.append(frgt)
-                bwt_list.append(bwt)
-            self.log.info("================ Task %d result ================", task_idx)
-            self.log.info(
-                " * [Batch] last avg acc: %.2f | [Task] last avg acc: %.2f",
-                res["avg_acc"], task_last_acc_list[task_idx],
-            )
-            self.log.info(" * frgt %.3f bwt %.2f", frgt, bwt)
-            self.log.info(" * per-task acc: %s", res["per_task_acc"])
-            self.log.event(
-                "task_done", task=task_idx, avg_acc=res["avg_acc"],
-                per_task_acc=res["per_task_acc"], frgt=frgt, bwt=bwt,
-            )
+                res = self._validate(task_idx)
+                per_task_acc = np.asarray(res["per_task_acc"])
+                batch_last_acc_list[task_idx] = res["avg_acc"]
+                task_last_acc_list[task_idx] = float(np.mean(per_task_acc))
+                self.acc_table[task_idx, : task_idx + 1] = per_task_acc
+                frgt = compute_frgt(self.acc_table, self.acc_table[task_idx], task_idx)
+                bwt = compute_bwt(self.acc_table, self.acc_table[task_idx], task_idx)
+                if task_idx > 1:
+                    frgt_list.append(frgt)
+                    bwt_list.append(bwt)
+                self.log.info("================ Task %d result ================", task_idx)
+                self.log.info(
+                    " * [Batch] last avg acc: %.2f | [Task] last avg acc: %.2f",
+                    res["avg_acc"], task_last_acc_list[task_idx],
+                )
+                self.log.info(" * frgt %.3f bwt %.2f", frgt, bwt)
+                self.log.info(" * per-task acc: %s", res["per_task_acc"])
+                self.log.event(
+                    "task_done", task=task_idx, avg_acc=res["avg_acc"],
+                    per_task_acc=res["per_task_acc"], frgt=frgt, bwt=bwt,
+                )
 
         t_idx = self.task_num - 1
         overall = {
@@ -306,9 +364,10 @@ class Trainer:
             return
         self.buffer.total_classes += self.init_cls_num if task_idx == 0 else self.inc_cls_num
         if self.buffer.buffer_size > 0:
-            self.buffer.update(task_data, feature_fn=self._batched_features,
-                               seed=int(self.config.get("seed", 0)) + task_idx)
-            self.state = self.method.on_buffer_updated(self.state, task_idx, self.buffer)
+            with TRACER.span("buffer.update", task=task_idx):
+                self.buffer.update(task_data, feature_fn=self._batched_features,
+                                   seed=int(self.config.get("seed", 0)) + task_idx)
+                self.state = self.method.on_buffer_updated(self.state, task_idx, self.buffer)
 
     def _batched_features(self, images_uint8: np.ndarray) -> np.ndarray:
         """Eval-mode features of host images in batches of ``batch_size``;

@@ -31,7 +31,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-#: kernel launches per wrapper; a launch adds one here and nowhere else
+from libcontinual_tpu_torch.utils.trace import TRACER
+
+#: kernel launches per wrapper; a launch adds one here and nowhere else (while
+#: the tracer records, the packed, prefix and masked wrappers also hand each
+#: launch's (kind, shape) to ``TRACER.launch``)
 LAUNCHES: Dict[str, int] = {
     "qkv_fwd": 0, "qkv_bwd": 0, "attn_fwd": 0, "attn_fwd_v2": 0, "attn_fwd_fast": 0,
     "attn_fwd_mmonly": 0, "attn_fwd_qblock": 0, "attn_fwd_flash": 0,
@@ -136,6 +140,7 @@ def qkv_attention_cuda(qkv: torch.Tensor, scale: float, heads: int) -> torch.Ten
     )
     _raise_on(err, "qkv_attention_cuda")
     LAUNCHES["qkv_fwd"] += 1
+    TRACER.launch("qkv_fwd", (b, s, d, int(heads)))
     return out
 
 
@@ -158,6 +163,7 @@ def qkv_attention_bwd_cuda(
     )
     _raise_on(err, "qkv_attention_bwd_cuda")
     LAUNCHES["qkv_bwd"] += 1
+    TRACER.launch("qkv_bwd", (b, s, d, int(heads)))
     return dqkv
 
 

@@ -26,6 +26,7 @@ from libcontinual_tpu_torch.ops.attention import (
     _route,
     _split_heads,
 )
+from libcontinual_tpu_torch.utils.trace import TRACER
 
 #: kernel launches per wrapper; a launch adds one here and nowhere else
 LAUNCHES: Dict[str, int] = {"mqkv_fwd": 0, "mqkv_bwd": 0}
@@ -102,6 +103,7 @@ def masked_attention_cuda(
     )
     _raise_on(err, "masked_attention_cuda")
     LAUNCHES["mqkv_fwd"] += 1
+    TRACER.launch("mqkv_fwd", (b, s, d, int(heads)))
     return out
 
 
@@ -124,6 +126,7 @@ def masked_attention_bwd_cuda(
     )
     _raise_on(err, "masked_attention_bwd_cuda")
     LAUNCHES["mqkv_bwd"] += 1
+    TRACER.launch("mqkv_bwd", (b, s, d, int(heads)))
     return dqkv
 
 

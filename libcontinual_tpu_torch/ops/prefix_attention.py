@@ -31,6 +31,7 @@ from libcontinual_tpu_torch.ops.attention import (
     _route,
     _split_heads,
 )
+from libcontinual_tpu_torch.utils.trace import TRACER
 
 #: kernel launches per wrapper; a launch adds one here and nowhere else
 LAUNCHES: Dict[str, int] = {"pqkv_fwd": 0, "pqkv_bwd": 0}
@@ -142,6 +143,7 @@ def prefix_attention_cuda(
     )
     _raise_on(err, "prefix_attention_cuda")
     LAUNCHES["pqkv_fwd"] += 1
+    TRACER.launch("pqkv_fwd", (b, s, p, d, int(heads)))
     return out
 
 
@@ -168,6 +170,7 @@ def prefix_attention_bwd_cuda(
     )
     _raise_on(err, "prefix_attention_bwd_cuda")
     LAUNCHES["pqkv_bwd"] += 1
+    TRACER.launch("pqkv_bwd", (b, s, p, d, int(heads)))
     return dqkv, dpk, dpv
 
 

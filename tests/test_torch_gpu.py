@@ -7,6 +7,11 @@ may not have).
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -550,3 +555,76 @@ def test_generic_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         T.attention_cuda(q, k, v[:, :, :3], 0.1)
     with pytest.raises(ValueError, match="Sq == Skv"):
         T.attention_variant_cuda(q, k, v, 0.1, "flash")
+
+
+# ------------------------------------------------------- the tracer on CUDA
+
+#: a 2-task L2P run of a tiny ViT, as the CPU trainer tests run it
+TRACE_OVERRIDES = {
+    "dataset": "synthetic", "data_root": "", "image_size": 32,
+    "task_num": 2, "init_cls_num": 4, "inc_cls_num": 4,
+    "epoch": 2, "batch_size": 16, "per_class": 24, "seed": 7,
+    "val_per_epoch": 0, "testing_times": 1, "dtype": "float32",
+    "augment": False, "mesh": {"data": 1, "model": 1},
+    "backbone": {"name": "vit_tiny_test", "kwargs": {}},
+    "classifier": {"name": "L2P", "kwargs": {
+        "num_class": 8, "feat_dim": 64, "init_cls_num": 4, "inc_cls_num": 4,
+        "task_num": 2, "prompt_length": 3, "pool_size": 6, "top_k": 2,
+        "pull_constraint_coeff": 0.1}},
+    "train_trfms": [{"Normalize": {"mean": [0.5] * 3, "std": [0.25] * 3}}],
+    "test_trfms": [{"Normalize": {"mean": [0.5] * 3, "std": [0.25] * 3}}],
+    "buffer": {"name": "LinearBuffer",
+               "kwargs": {"buffer_size": 0, "batch_size": 16, "strategy": "random"}},
+    "optimizer": {"name": "Adam", "kwargs": {"lr": 0.01}},
+    "lr_scheduler": {"name": "Constant"}, "warmup": 0, "profile": True,
+}
+
+#: a fresh process: nothing has touched CUDA when the trainer's period
+#: begins; closed spans' events are resolved every 8 (``RESOLVE_AT``)
+PROFILE_RUN = """
+import json, sys, torch
+from libcontinual_tpu_torch.config import Config
+from libcontinual_tpu_torch.core.trainer import Trainer
+from libcontinual_tpu_torch.utils import trace
+trace.RESOLVE_AT = 8
+cfg = Config(overrides=json.loads(sys.argv[1])).get_config_dict()
+assert not torch.cuda.is_initialized()
+Trainer(cfg, device="cuda").train_loop()
+period = trace.TRACER.periods[-1]
+held = sum(s.ev0 is not None for s in period.spans)
+rows = period.rows()
+keys = ("name", "id", "parent", "device_start_ms", "device_end_ms", "device_ms", "syncs")
+print(json.dumps({"mode": torch.cuda.get_sync_debug_mode(), "held": held,
+                  "rows": [{k: r[k] for k in keys} for r in rows]}))
+"""
+
+
+def test_profile_run_records_device_times_and_syncs(cuda, tmp_path):
+    """A ``profile: true`` run begins its period before CUDA starts; the
+    spans after it still carry device times, nested as the spans are, and
+    count the epoch drain's host copies as syncs; the run ends holding few
+    events, and the sync debug mode is put back."""
+    cfg = dict(TRACE_OVERRIDES, save_path=str(tmp_path))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", PROFILE_RUN, json.dumps(cfg)], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["mode"] == 0
+    rows = got["rows"]
+    steps = [r for r in rows if r["name"] == "trainer.step"]
+    drains = [r for r in rows if r["name"] == "epoch.drain"]
+    assert len(steps) == 24 and len(drains) == 4
+    assert all(r["device_ms"] is not None and r["device_ms"] > 0 for r in steps)
+    assert all(r["syncs"] >= 1 for r in drains)
+    by_id = {r["id"]: r for r in rows}
+    for r in rows:
+        parent = by_id.get(r["parent"])
+        if parent is not None and parent["name"] == "trainer.step":
+            assert parent["device_start_ms"] <= r["device_start_ms"] <= r["device_end_ms"]
+            assert r["device_end_ms"] <= parent["device_end_ms"]
+    assert len(rows) > 150 and got["held"] < 40
+    with open(os.path.join(str(tmp_path), "events.jsonl"), encoding="utf-8") as fin:
+        spans = [e for e in map(json.loads, fin) if e["kind"] == "span"]
+    assert [e["device_ms"] for e in spans if e["name"] == "trainer.step"] == [
+        r["device_ms"] for r in steps]
