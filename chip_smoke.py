@@ -582,6 +582,7 @@ def phase_build():
             nreg = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             attn = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
+            onepass = re.search(r"attn_fwd_kernelILi(\d)ELi(\d+)EE", chunk)
             conv = re.search(r"(conv3x3_\w+?_kernel)(?:I(f|13__nv_bfloat16)(?:Li(\d)E)?E)?", chunk)
             gen = re.search(r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
             if not (nreg and spill):
@@ -593,6 +594,9 @@ def phase_build():
             elif attn:
                 kind, typ, hd, mode = attn.groups()
                 label = f"{_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} hd {hd:2s}"
+            elif onepass:
+                mode, keys = onepass.groups()
+                label = f"{_MODES[mode]:5s} attn_fwd_kernel one-pass bf16 hd <= 64, keys <= {keys}"
             elif conv:
                 kind, typ, mt = conv.groups()
                 dtype = "" if typ is None else "f32" if typ == "f" else "bf16"
@@ -608,16 +612,17 @@ def phase_build():
 TENSOR_CORE_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
 
 
-def _hmma_counts(cuobjdump, library, pattern):
+def _hmma_counts(cuobjdump, library, pattern, op="HMMA"):
     """{the groups of ``pattern`` matched on a kernel's mangled name: the
-    HMMA instructions in its SASS} for every kernel of ``library``."""
+    ``op`` instructions (HMMA: mma.sync; HGMMA: wgmma) in its SASS} for every
+    kernel of ``library``."""
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     hmma = {}
     for fn in sass.split("Function : ")[1:]:
         m = re.search(pattern, fn.split()[0])
         if m:
-            hmma[m.groups()] = len(re.findall(r"\bHMMA\.", fn))
+            hmma[m.groups()] = len(re.findall(rf"\b{op}\.", fn))
     return hmma
 
 
@@ -626,8 +631,9 @@ def _check_tensor_cores(_build):
     kernels, of the generic forward ``gattn_kernel`` (6 modes x 4 head dims),
     of ``conv3x3_dw_partial_kernel`` and of ``conv3x3_fwd_kernel`` (both of
     its block shapes) run HMMA (the tensor cores' mma.sync) in the built
-    libraries' SASS, and the f32 ones none (CUDA-core FMA: no TF32), as
-    ``cuobjdump -sass`` shows."""
+    libraries' SASS, and the f32 ones none (CUDA-core FMA: no TF32); the
+    one-pass forward (``attn_fwd_kernel<MODE, KEYS>``: 3 modes x KEYS 64, 128,
+    192, 256) runs HGMMA (wgmma), as ``cuobjdump -sass`` shows."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     attn_lib = _build.library_path("attention")
     hmma = _hmma_counts(cuobjdump, attn_lib,
@@ -640,6 +646,12 @@ def _check_tensor_cores(_build):
               f"in the f32 ones: {sorted(set(f32))}")
         _require(len(bf16) == len(f32) == 12 and all(bf16.values()) and not any(f32),
                  f"the bf16 {kernel} does not run on the tensor cores, or an f32 one does")
+    hgmma = _hmma_counts(cuobjdump, attn_lib, r"lct\d+attn_fwd_kernelILi(\d)ELi(\d+)EE", "HGMMA")
+    onepass = {(_MODES[mode], int(keys)): n for (mode, keys), n in sorted(hgmma.items())}
+    print(f"[build] SASS: HGMMA instructions in each one-pass attn_fwd_kernel (mode, keys): "
+          f"{onepass}")
+    _require(len(onepass) == 12 and all(onepass.values()),
+             "the one-pass attn_fwd_kernel does not run on wgmma")
     gen = _hmma_counts(cuobjdump, attn_lib, r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E")
     bf16 = {(_GEN_MODES[int(mode)], int(hd)): n for (typ, hd, mode), n in sorted(gen.items())
             if typ != "f"}
@@ -1000,6 +1012,12 @@ def phase_slice(dev, name, seen):
           f"losses {np.concatenate(losses).round(4).tolist()}")
     print(f"[slice {name}] acc table {table.tolist()}, last avg acc {res['last_avg_acc']}")
     print(f"[slice {name}] kernel launches in the run: {launches}")
+    onepass = {k: (launches[k + "_onepass"], launches[k])
+               for k in ("qkv_fwd", "pqkv_fwd", "mqkv_fwd")}
+    print(f"[slice {name}] forwards on the one-pass kernel (of all): {onepass}")
+    if name == "L2P":  # bf16, hd 64, 197 and 222 keys: every forward
+        _require(all(n == total for n, total in onepass.values()),
+                 f"{name}: a forward took the streaming kernel: {onepass}")
     _require(steps > 0 and all(np.isfinite(x).all() for x in losses), f"{name}: non-finite loss")
     _require(table.shape == (2, 2) and np.isfinite(table).all(), f"{name}: acc table not filled")
     frozen1 = _frozen(trainer.state)
@@ -1198,6 +1216,10 @@ def phase_slice_reference(trainer, dev, name):
     passes = 2 if name == "L2P" else 1
     _require(launches["qkv_fwd"] == passes * depth and launches["qkv_bwd"] == depth,
              f"{name} reference run launched {launches}")
+    print(f"[reference {name}] one batch: {launches['qkv_fwd']} qkv_fwd launches, "
+          f"{launches['qkv_fwd_onepass']} on the one-pass kernel")
+    _require(name != "L2P" or launches["qkv_fwd_onepass"] == launches["qkv_fwd"],
+             f"{name}: a forward of the batch took the streaming kernel")
     with _plain_attention():
         ref = run()
     _compare(name, got, ref)

@@ -35,10 +35,11 @@ from libcontinual_tpu_torch.utils.trace import TRACER
 
 #: kernel launches per wrapper; a launch adds one here and nowhere else (while
 #: the tracer records, the packed, prefix and masked wrappers also hand each
-#: launch's (kind, shape) to ``TRACER.launch``)
+#: launch's (kind, shape) to ``TRACER.launch``). ``qkv_fwd_onepass`` counts the
+#: ``qkv_fwd`` launches that took the one-pass kernel (:func:`onepass`)
 LAUNCHES: Dict[str, int] = {
     "qkv_fwd": 0, "qkv_bwd": 0, "attn_fwd": 0, "attn_fwd_v2": 0, "attn_fwd_fast": 0,
-    "attn_fwd_mmonly": 0, "attn_fwd_qblock": 0, "attn_fwd_flash": 0,
+    "attn_fwd_mmonly": 0, "attn_fwd_qblock": 0, "attn_fwd_flash": 0, "qkv_fwd_onepass": 0,
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,6 +126,14 @@ def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, i
     return b, s, d, d // heads
 
 
+def onepass(keys: int, hd: int, dtype: torch.dtype) -> bool:
+    """Whether a packed, prefix or masked forward over ``keys`` keys (P + S)
+    at head dim ``hd`` takes the one-pass kernel (bf16, hd <= 64, at most
+    256 keys) rather than the streaming one: the C side's rule,
+    ``lct_attn_fwd_onepass``."""
+    return bool(_lib().lct_attn_fwd_onepass(keys, hd, _DTYPES[dtype]))
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
@@ -140,6 +149,7 @@ def qkv_attention_cuda(qkv: torch.Tensor, scale: float, heads: int) -> torch.Ten
     )
     _raise_on(err, "qkv_attention_cuda")
     LAUNCHES["qkv_fwd"] += 1
+    LAUNCHES["qkv_fwd_onepass"] += onepass(s, hd, qkv.dtype)
     TRACER.launch("qkv_fwd", (b, s, d, int(heads)))
     return out
 

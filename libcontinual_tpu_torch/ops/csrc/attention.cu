@@ -23,11 +23,15 @@
 // The packed, prefix and masked kernels take any S and P (keys and values
 // stream through shared memory in 64-row tiles, nothing grows with S) and
 // hd 1-128, like the TPU bodies, which hold a head's (S, S) tile in VMEM.
-// Their bf16 instantiations run every product on the tensor cores (mma.sync
-// m16n8k16): the forward in two passes over the key tiles so that the
-// normalised P is rounded before P . v, as the TPU bodies round it; the
-// backward as a per-query-tile dq kernel and a per-key-tile dk/dv kernel (no
-// atomics). The f32 instantiations are f32 FMA on the CUDA cores.
+// Their bf16 forward at hd <= 64 and at most 256 keys (every ViT and CLIP
+// path of the port) is the one-pass kernel of onepass_attention.cuh: a
+// query tile's whole score row in registers, wgmma for both products, one
+// expf a score. Every other forward streams the keys (mma.sync m16n8k16 at
+// bf16) in two passes over the key tiles so that the normalised P is rounded
+// before P . v, as the TPU bodies round it; lct_attn_fwd_onepass says which a
+// shape takes. The bf16 backward runs on mma.sync as a per-query-tile dq
+// kernel and a per-key-tile dk/dv kernel (no atomics). The f32 instantiations
+// are f32 FMA on the CUDA cores.
 // attention_kernels.cuh states the design, the rounding points and what
 // bounds the kernels on an H100: the bytes (about 52 us forward and 91 us
 // backward at B 128, S 222; 9.4 us forward and 16.5 us backward for the
@@ -40,13 +44,22 @@
 
 #include "attention_kernels.cuh"
 #include "generic_attention.cuh"
+#include "onepass_attention.cuh"
+
+// Whether a forward of N = P + S keys at head dim hd and dtype takes the
+// one-pass kernel (1) or the streaming one (0): lct::onepass_fwd, the rule
+// every lct_*_fwd below follows.
+extern "C" int lct_attn_fwd_onepass(int N, int hd, int dtype) {
+  return lct::onepass_fwd(N, hd, dtype) ? 1 : 0;
+}
 
 // ---------------------------------------------------------------- packed qkv
 
 extern "C" int lct_qkv_fwd(const void* qkv, void* out, int B, int S, int H, int hd, int dtype,
                            float scale, void* stream) {
-  return (int)lct::attn_fwd<lct::kPlain>(qkv, nullptr, nullptr, 0, 0, nullptr, out, B, S, 0, H,
-                                         hd, dtype, scale, static_cast<cudaStream_t>(stream));
+  return (int)lct::attn_fwd_any<lct::kPlain>(qkv, nullptr, nullptr, 0, 0, nullptr, out, B, S, 0,
+                                             H, hd, dtype, scale,
+                                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lct_qkv_bwd(const void* qkv, const void* g, void* dqkv, void* stats, int B, int S,
@@ -63,9 +76,9 @@ extern "C" int lct_qkv_bwd(const void* qkv, const void* g, void* dqkv, void* sta
 extern "C" int lct_pqkv_fwd(const void* qkv, const void* pk, const void* pv, long long pk_bstride,
                             long long pv_bstride, void* out, int B, int S, int P, int H, int hd,
                             int dtype, float scale, void* stream) {
-  return (int)lct::attn_fwd<lct::kPrefix>(qkv, pk, pv, pk_bstride, pv_bstride, nullptr, out, B, S,
-                                          P, H, hd, dtype, scale,
-                                          static_cast<cudaStream_t>(stream));
+  return (int)lct::attn_fwd_any<lct::kPrefix>(qkv, pk, pv, pk_bstride, pv_bstride, nullptr, out,
+                                              B, S, P, H, hd, dtype, scale,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // dqkv (B, S, 3D), dpk and dpv (B, P, D): contiguous outputs.
@@ -83,8 +96,9 @@ extern "C" int lct_pqkv_bwd(const void* qkv, const void* pk, const void* pv, lon
 // mask: (S, S) float32, contiguous, added to every image's and head's scores.
 extern "C" int lct_mqkv_fwd(const void* qkv, const float* mask, void* out, int B, int S, int H,
                             int hd, int dtype, float scale, void* stream) {
-  return (int)lct::attn_fwd<lct::kMasked>(qkv, nullptr, nullptr, 0, 0, mask, out, B, S, 0, H, hd,
-                                          dtype, scale, static_cast<cudaStream_t>(stream));
+  return (int)lct::attn_fwd_any<lct::kMasked>(qkv, nullptr, nullptr, 0, 0, mask, out, B, S, 0, H,
+                                              hd, dtype, scale,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lct_mqkv_bwd(const void* qkv, const float* mask, const void* g, void* dqkv,

@@ -60,12 +60,17 @@
 // accumulator registers straight into A-fragments, rounded to bf16 as it is
 // packed: the C and A layouts of m16n8k16 line up.
 //
-// Forward (attn_fwd_kernel), one block per 64-query tile. Because the TPU
-// body rounds the *normalised* P before P . v, the block makes two passes
-// over the key tiles: pass 1 forms the scores and each row's max and sum
-// (the sum rescaled online as the max grows, rows reduced over the quad with
-// shuffles); pass 2 forms the scores again, P = round(exp(s - m) / l) in the
-// accumulator registers, and accumulates O += P . V. The cost is q . k^T
+// Forward. At bf16, hd <= 64 and at most 256 keys the forward is the
+// one-pass overload attn_fwd_kernel<MODE, KEYS> of onepass_attention.cuh
+// (wgmma, a query tile's whole score row in registers, one expf a score);
+// onepass_fwd there chooses. Every other shape (f32, hd 65-128, more keys)
+// takes the streaming attn_fwd_kernel<T, HDP, MODE> below, one block per
+// 64-query tile. Because the TPU body rounds the *normalised* P before
+// P . v, the block makes two passes over the key tiles: pass 1 forms the
+// scores and each row's max and sum (the sum rescaled online as the max
+// grows, rows reduced over the quad with shuffles); pass 2 forms the scores
+// again, P = round(exp(s - m) / l) in the accumulator registers, and
+// accumulates O += P . V. The cost is q . k^T
 // twice, which at these shapes stays below the byte bound's time at the
 // dense peak; what the block spends most on is the softmax's per-score
 // arithmetic (an expf in each pass), so the quotient exp(s - m) / l has no

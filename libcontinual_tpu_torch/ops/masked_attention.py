@@ -25,11 +25,14 @@ from libcontinual_tpu_torch.ops.attention import (
     _raise_on,
     _route,
     _split_heads,
+    onepass,
 )
 from libcontinual_tpu_torch.utils.trace import TRACER
 
-#: kernel launches per wrapper; a launch adds one here and nowhere else
-LAUNCHES: Dict[str, int] = {"mqkv_fwd": 0, "mqkv_bwd": 0}
+#: kernel launches per wrapper; a launch adds one here and nowhere else.
+#: ``mqkv_fwd_onepass`` counts the ``mqkv_fwd`` launches that took the
+#: one-pass kernel (``attention.onepass``)
+LAUNCHES: Dict[str, int] = {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0}
 
 
 def reset_launches() -> None:
@@ -103,6 +106,7 @@ def masked_attention_cuda(
     )
     _raise_on(err, "masked_attention_cuda")
     LAUNCHES["mqkv_fwd"] += 1
+    LAUNCHES["mqkv_fwd_onepass"] += onepass(s, hd, qkv.dtype)
     TRACER.launch("mqkv_fwd", (b, s, d, int(heads)))
     return out
 

@@ -30,11 +30,14 @@ from libcontinual_tpu_torch.ops.attention import (
     _raise_on,
     _route,
     _split_heads,
+    onepass,
 )
 from libcontinual_tpu_torch.utils.trace import TRACER
 
-#: kernel launches per wrapper; a launch adds one here and nowhere else
-LAUNCHES: Dict[str, int] = {"pqkv_fwd": 0, "pqkv_bwd": 0}
+#: kernel launches per wrapper; a launch adds one here and nowhere else.
+#: ``pqkv_fwd_onepass`` counts the ``pqkv_fwd`` launches that took the
+#: one-pass kernel (``attention.onepass``)
+LAUNCHES: Dict[str, int] = {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0}
 
 
 def reset_launches() -> None:
@@ -143,6 +146,7 @@ def prefix_attention_cuda(
     )
     _raise_on(err, "prefix_attention_cuda")
     LAUNCHES["pqkv_fwd"] += 1
+    LAUNCHES["pqkv_fwd_onepass"] += onepass(p + s, hd, qkv.dtype)
     TRACER.launch("pqkv_fwd", (b, s, p, d, int(heads)))
     return out
 

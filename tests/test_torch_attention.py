@@ -141,6 +141,31 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(x.grad, ref)
 
 
+@pytest.mark.parametrize("family", ["qkv", "prefix", "masked"])
+def test_cpu_tensors_count_no_onepass_launch(family):
+    """A bf16 forward at a shape the one-pass kernel takes on the card (hd 64,
+    20 keys) runs the plain version on a CPU tensor: the ``*_fwd_onepass``
+    counter is there and stays 0, like every other."""
+    from libcontinual_tpu_torch.ops import masked_attention as MT
+    from libcontinual_tpu_torch.ops import prefix_attention as PT
+
+    qkv, _ = _inputs(1, 20, 1, 64)
+    x = torch.from_numpy(qkv).bfloat16()
+    mod = {"qkv": T, "prefix": PT, "masked": MT}[family]
+    mod.reset_launches()
+    if family == "qkv":
+        out = T.qkv_attention_forward(x, 0.125, 1)
+    elif family == "prefix":
+        pk = torch.zeros(1, 3, 64, dtype=torch.bfloat16)
+        out = PT.prefix_attention_forward(x, pk, pk, 0.125, 1)
+    else:
+        out = MT.masked_attention_forward(x, torch.zeros(20, 20), 0.125, 1)
+    assert out.shape == (1, 20, 64) and out.dtype == torch.bfloat16
+    key = {"qkv": "qkv_fwd_onepass", "prefix": "pqkv_fwd_onepass", "masked": "mqkv_fwd_onepass"}
+    assert key[family] in mod.LAUNCHES
+    assert mod.LAUNCHES == dict.fromkeys(mod.LAUNCHES, 0)
+
+
 def test_other_devices_raise():
     qkv = torch.zeros(1, 4, 48, device="meta")
     with pytest.raises(ValueError, match="no implementation"):

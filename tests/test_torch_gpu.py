@@ -68,7 +68,8 @@ def test_autograd_function_launches_both_kernels(cuda):
     qkv = torch.randn(2, 9, 3 * 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     T.reset_launches()
     T.fused_qkv_attention(qkv, 0.25, 4).float().sum().backward()
-    assert T.LAUNCHES == {**dict.fromkeys(T.LAUNCHES, 0), "qkv_fwd": 1, "qkv_bwd": 1}
+    assert T.LAUNCHES == {**dict.fromkeys(T.LAUNCHES, 0), "qkv_fwd": 1, "qkv_bwd": 1,
+                          "qkv_fwd_onepass": 1}
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
@@ -132,7 +133,7 @@ def test_prefix_autograd_function_launches_both_kernels(cuda):
     pv = torch.randn(2, 3, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     PT.reset_launches()
     PT.fused_prefix_attention(qkv, pk, pv, 0.25, 4).float().sum().backward()
-    assert PT.LAUNCHES == {"pqkv_fwd": 1, "pqkv_bwd": 1}
+    assert PT.LAUNCHES == {"pqkv_fwd": 1, "pqkv_bwd": 1, "pqkv_fwd_onepass": 1}
     assert pk.grad is not None and pv.grad is not None and pv.grad.abs().sum() > 0
 
 
@@ -200,6 +201,56 @@ def test_backward_is_deterministic(cuda, family):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+#: (family, shape) of the one-pass forward's checks: qkv (B, S, H, hd), prefix
+#: (B, S, P, H, hd), masked (B, S, H, hd, mask). Keys N = P + S: 1, a warp's
+#: and a block's edges, the ViT's 197 and 222, 256 (the most it takes) and 257
+#: (the streaming kernel's); hd 20 (element copies) and 48; a prefix whose
+#: first 64-key block straddles P; the text tower's causal S 77
+ONEPASS_CASES = [
+    *[("qkv", (2, n, 2, 64)) for n in (1, 63, 64, 65, 128, 256, 257)],
+    ("qkv", (2, 197, 4, 64)), ("qkv", (2, 222, 4, 64)), ("qkv", (2, 150, 3, 20)),
+    ("qkv", (2, 150, 3, 48)),
+    ("prefix", (2, 197, 10, 4, 64)), ("prefix", (2, 40, 30, 3, 20)), ("prefix", (2, 250, 7, 2, 64)),
+    ("masked", (3, 77, 8, 64, "causal")), ("masked", (2, 100, 3, 48, "random")),
+    ("masked", (2, 257, 2, 64, "causal")),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ONEPASS_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_onepass_forward_engages_where_it_should_and_matches_plain(cuda, dtype, case):
+    """The forward against its plain version; the one-pass kernel takes it
+    exactly at bf16, hd <= 64 and N <= 256 (its counter and the C side's
+    predicate say so), the streaming kernel elsewhere; two calls give the
+    same bits."""
+    family, shape = case
+    p = 0
+    if family == "prefix":
+        b, s, p, h, hd = shape
+        qkv, pk, pv, _ = _prefix_inputs(cuda, shape, dtype, "image")
+        mod, key, args = PT, "pqkv_fwd", (qkv, pk, pv)
+        kernel, plain = PT.prefix_attention_cuda, PT.prefix_attention_plain
+    elif family == "masked":
+        b, s, h, hd, kind = shape
+        qkv, mask, _ = _masked_inputs(cuda, (b, s, h, hd), dtype, kind)
+        mod, key, args = MT, "mqkv_fwd", (qkv, mask)
+        kernel, plain = MT.masked_attention_cuda, MT.masked_attention_plain
+    else:
+        b, s, h, hd = shape
+        g = torch.Generator(device=cuda).manual_seed(3)
+        qkv = torch.randn(b, s, 3 * h * hd, device=cuda, generator=g).to(dtype)
+        mod, key, args = T, "qkv_fwd", (qkv,)
+        kernel, plain = T.qkv_attention_cuda, T.qkv_attention_plain
+    engages = dtype == torch.bfloat16 and hd <= 64 and p + s <= 256
+    assert T.onepass(p + s, hd, dtype) == engages
+    mod.reset_launches()
+    first, second = kernel(*args, hd ** -0.5, h), kernel(*args, hd ** -0.5, h)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[key] == 2 and mod.LAUNCHES[key + "_onepass"] == 2 * engages
+    assert _err(first, plain(*args, hd ** -0.5, h)) <= TOL[dtype]
+    assert torch.equal(first, second)
+
+
 def test_masked_wrappers_refuse_a_wrong_mask(cuda):
     qkv = torch.zeros(1, 8, 192, device=cuda)
     with pytest.raises(ValueError, match="mask"):
@@ -236,7 +287,8 @@ def test_moe_adapter_step_launches_the_masked_backward_per_text_block(cuda):
     method.train_step(state, batch, 1e-3)
     torch.cuda.synchronize()
     depth = len(state.params["clip"].text.blocks)
-    assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1}
+    # bf16, hd 16, 77 keys: every forward takes the one-pass kernel
+    assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1, "mqkv_fwd_onepass": depth}
 
 
 class _PlainQKV(torch.autograd.Function):

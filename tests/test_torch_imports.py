@@ -115,14 +115,16 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 def test_real_sources_share_one_header():
     """Two libraries: ``attention.cu`` on the shared headers, for the three
-    packed attention families and the generic forward, and ``conv.cu`` on
+    packed attention families (their one-pass forward in its own header) and
+    the generic forward, and ``conv.cu`` on
     the packed kernels' header alone (its cp.async, ldmatrix and mma.sync
     primitives). Each exports every function its wrappers type, and nothing
     is typed twice."""
     from libcontinual_tpu_torch.ops import _build
 
     assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh",
-                                                   "conv.cu", "generic_attention.cuh"]
+                                                   "conv.cu", "generic_attention.cuh",
+                                                   "onepass_attention.cuh"]
     assert tuple(_build.SIGNATURES) == _build.LIBRARIES == ("attention", "conv")
     src = {}
     for name in _build.LIBRARIES:
@@ -133,6 +135,7 @@ def test_real_sources_share_one_header():
         assert len(re.findall(r'extern "C" int lct_', src[name])) == len(_build.SIGNATURES[name])
     assert '#include "attention_kernels.cuh"' in src["attention"]
     assert '#include "generic_attention.cuh"' in src["attention"]
+    assert '#include "onepass_attention.cuh"' in src["attention"]
     assert re.findall(r'#include "(\w+\.cuh)"', src["conv"]) == ["attention_kernels.cuh"]
     assert {fn.split("_")[1] for fn in _build.SIGNATURES["attention"]} == {"qkv", "pqkv", "mqkv",
                                                                             "attn"}
