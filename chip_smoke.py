@@ -67,8 +67,9 @@ which raises on failure:
      ``torch.profiler``) and one full-width DMNSP batch through the kernels
      against the plain attention;
   5. timing: each attention kernel against its plain version and against
-     ``scaled_dot_product_attention`` on the flash and cuDNN backends (the
-     backward's dq and dk/dv kernels also apart, from ``torch.profiler``), and
+     ``scaled_dot_product_attention`` on the flash and cuDNN backends (a
+     streaming backward's dq and dk/dv kernels also apart, from
+     ``torch.profiler``; the one-pass backward is one launch), and
      each conv kernel against its plain version and cuDNN (the yardsticks,
      which the port never calls) at the main path's shapes, the forward also
      as dx (on the output gradient and the rotated taps, beside cuDNN's data
@@ -582,7 +583,7 @@ def phase_build():
             nreg = re.search(r"Used (\d+) registers", chunk)
             spill = re.search(r"(\d+) bytes spill stores", chunk)
             attn = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
-            onepass = re.search(r"attn_fwd_kernelILi(\d)ELi(\d+)EE", chunk)
+            onepass = re.search(r"attn_(fwd|bwd_dkdv)_kernelILi(\d)ELi(\d+)EE", chunk)
             conv = re.search(r"(conv3x3_\w+?_kernel)(?:I(f|13__nv_bfloat16)(?:Li(\d)E)?E)?", chunk)
             gen = re.search(r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
             if not (nreg and spill):
@@ -595,8 +596,9 @@ def phase_build():
                 kind, typ, hd, mode = attn.groups()
                 label = f"{_MODES[mode]:5s} {kind:20s} {'f32' if typ == 'f' else 'bf16':4s} hd {hd:2s}"
             elif onepass:
-                mode, keys = onepass.groups()
-                label = f"{_MODES[mode]:5s} attn_fwd_kernel one-pass bf16 hd <= 64, keys <= {keys}"
+                kind, mode, keys = onepass.groups()
+                label = (f"{_MODES[mode]:5s} attn_{kind}_kernel one-pass bf16 hd <= 64, "
+                         f"keys <= {keys}")
             elif conv:
                 kind, typ, mt = conv.groups()
                 dtype = "" if typ is None else "f32" if typ == "f" else "bf16"
@@ -633,7 +635,8 @@ def _check_tensor_cores(_build):
     its block shapes) run HMMA (the tensor cores' mma.sync) in the built
     libraries' SASS, and the f32 ones none (CUDA-core FMA: no TF32); the
     one-pass forward (``attn_fwd_kernel<MODE, KEYS>``: 3 modes x KEYS 64, 128,
-    192, 256) runs HGMMA (wgmma), as ``cuobjdump -sass`` shows."""
+    192, 256) and backward (``attn_bwd_dkdv_kernel<MODE, KEYS>``, the same 12)
+    run HGMMA (wgmma), as ``cuobjdump -sass`` shows."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     attn_lib = _build.library_path("attention")
     hmma = _hmma_counts(cuobjdump, attn_lib,
@@ -652,6 +655,13 @@ def _check_tensor_cores(_build):
           f"{onepass}")
     _require(len(onepass) == 12 and all(onepass.values()),
              "the one-pass attn_fwd_kernel does not run on wgmma")
+    hgmma = _hmma_counts(cuobjdump, attn_lib, r"lct\d+attn_bwd_dkdv_kernelILi(\d)ELi(\d+)EE",
+                         "HGMMA")
+    onepass = {(_MODES[mode], int(keys)): n for (mode, keys), n in sorted(hgmma.items())}
+    print(f"[build] SASS: HGMMA instructions in each one-pass backward attn_bwd_dkdv_kernel "
+          f"(mode, keys): {onepass}")
+    _require(len(onepass) == 12 and all(onepass.values()),
+             "the one-pass backward does not run on wgmma")
     gen = _hmma_counts(cuobjdump, attn_lib, r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E")
     bf16 = {(_GEN_MODES[int(mode)], int(hd)): n for (typ, hd, mode), n in sorted(gen.items())
             if typ != "f"}
@@ -1013,11 +1023,11 @@ def phase_slice(dev, name, seen):
     print(f"[slice {name}] acc table {table.tolist()}, last avg acc {res['last_avg_acc']}")
     print(f"[slice {name}] kernel launches in the run: {launches}")
     onepass = {k: (launches[k + "_onepass"], launches[k])
-               for k in ("qkv_fwd", "pqkv_fwd", "mqkv_fwd")}
-    print(f"[slice {name}] forwards on the one-pass kernel (of all): {onepass}")
-    if name == "L2P":  # bf16, hd 64, 197 and 222 keys: every forward
+               for k in ("qkv_fwd", "pqkv_fwd", "mqkv_fwd", "qkv_bwd", "pqkv_bwd", "mqkv_bwd")}
+    print(f"[slice {name}] forwards and backwards on the one-pass kernels (of all): {onepass}")
+    if name == "L2P":  # bf16, hd 64, 197 and 222 keys: every forward and backward
         _require(all(n == total for n, total in onepass.values()),
-                 f"{name}: a forward took the streaming kernel: {onepass}")
+                 f"{name}: a forward or backward took the streaming kernel: {onepass}")
     _require(steps > 0 and all(np.isfinite(x).all() for x in losses), f"{name}: non-finite loss")
     _require(table.shape == (2, 2) and np.isfinite(table).all(), f"{name}: acc table not filled")
     frozen1 = _frozen(trainer.state)
@@ -1217,9 +1227,11 @@ def phase_slice_reference(trainer, dev, name):
     _require(launches["qkv_fwd"] == passes * depth and launches["qkv_bwd"] == depth,
              f"{name} reference run launched {launches}")
     print(f"[reference {name}] one batch: {launches['qkv_fwd']} qkv_fwd launches, "
-          f"{launches['qkv_fwd_onepass']} on the one-pass kernel")
-    _require(name != "L2P" or launches["qkv_fwd_onepass"] == launches["qkv_fwd"],
-             f"{name}: a forward of the batch took the streaming kernel")
+          f"{launches['qkv_fwd_onepass']} on the one-pass kernel; {launches['qkv_bwd']} qkv_bwd "
+          f"launches, {launches['qkv_bwd_onepass']} on the one-pass backward")
+    _require(name != "L2P" or (launches["qkv_fwd_onepass"] == launches["qkv_fwd"]
+                               and launches["qkv_bwd_onepass"] == launches["qkv_bwd"]),
+             f"{name}: a forward or backward of the batch took a streaming kernel")
     with _plain_attention():
         ref = run()
     _compare(name, got, ref)
@@ -2027,11 +2039,13 @@ def phase_dmnsp_reference(method, state, batch, dev, card):
     method.draw = draw
     _compare("DMNSP", got, ref)
     state.params.zero_grad(set_to_none=True)
+    # the backward (197 keys, bf16, hd 64) is the one-pass attn_bwd_dkdv_kernel
+    # overload alone: no dq kernel
     names = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
     counts = _count_step_kernels(method, state, batch, 1e-3, names)
     print(f"[gradproj DMNSP] one train step's attention kernels (torch.profiler): {counts} "
           f"[{card}]")
-    _require(counts == dict(zip(names, (depth, depth - 1, depth - 1))),
+    _require(counts == dict(zip(names, (depth, 0, depth - 1))),
              f"DMNSP: the step launched {counts}")
 
 
@@ -2316,7 +2330,8 @@ def _time_family(name, tag, kernels, plains, sdpa, card):
     ``plains``: (forward, backward) functions) beside their plain versions
     and every SDPA run of ``sdpa`` ({name: (forward, forward + backward)}),
     each timed by ``_time_pair``; SDPA's backward is its forward + backward
-    minus its forward; the backward's two kernels apart by ``_bwd_split``.
+    minus its forward; a streaming backward's two kernels apart by
+    ``_bwd_split`` (the one-pass backward has no dq kernel).
     Returns the forward's and the backward's best times, each with the
     fastest SDPA time under "library" and its name under "library_name"
     (the backward also its kernels' under "dq" and "dkdv")."""
@@ -2329,10 +2344,14 @@ def _time_family(name, tag, kernels, plains, sdpa, card):
     print(f"[timing] {name}_bwd SDPA backward alone (forward + backward minus forward): "
           + ", ".join(f"{n} {bwd[n]:.4f} ms" for n in sdpa) + f" [{card}]")
     bwd.update(_bwd_split(kernels[1]))
-    print(f"[timing] {name}_bwd kernels apart (torch.profiler, 10 calls): attn_bwd_dq_kernel "
-          f"{bwd['dq']:.4f} ms, attn_bwd_dkdv_kernel {bwd['dkdv']:.4f} ms, together "
-          f"{bwd['dq'] + bwd['dkdv']:.4f} ms; the whole call {bwd['kernel']:.4f} ms (CUDA "
-          f"events) [{card}]")
+    if bwd["dq"] == 0.0:  # no dq kernel: the one-pass backward, one launch a call
+        print(f"[timing] {name}_bwd: one launch of the one-pass attn_bwd_dkdv_kernel a call, "
+              f"{bwd['kernel']:.4f} ms (CUDA events) [{card}]")
+    else:
+        print(f"[timing] {name}_bwd kernels apart (torch.profiler, 10 calls): attn_bwd_dq_kernel "
+              f"{bwd['dq']:.4f} ms, attn_bwd_dkdv_kernel {bwd['dkdv']:.4f} ms, together "
+              f"{bwd['dq'] + bwd['dkdv']:.4f} ms; the whole call {bwd['kernel']:.4f} ms (CUDA "
+              f"events) [{card}]")
     for best in (fwd, bwd):
         _set_library(best, list(sdpa))
     return fwd, bwd

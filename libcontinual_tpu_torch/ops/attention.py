@@ -36,10 +36,13 @@ from libcontinual_tpu_torch.utils.trace import TRACER
 #: kernel launches per wrapper; a launch adds one here and nowhere else (while
 #: the tracer records, the packed, prefix and masked wrappers also hand each
 #: launch's (kind, shape) to ``TRACER.launch``). ``qkv_fwd_onepass`` counts the
-#: ``qkv_fwd`` launches that took the one-pass kernel (:func:`onepass`)
+#: ``qkv_fwd`` launches that took the one-pass kernel (:func:`onepass`),
+#: ``qkv_bwd_onepass`` the ``qkv_bwd`` launches that took the one-pass
+#: backward (:func:`onepass_bwd`)
 LAUNCHES: Dict[str, int] = {
     "qkv_fwd": 0, "qkv_bwd": 0, "attn_fwd": 0, "attn_fwd_v2": 0, "attn_fwd_fast": 0,
     "attn_fwd_mmonly": 0, "attn_fwd_qblock": 0, "attn_fwd_flash": 0, "qkv_fwd_onepass": 0,
+    "qkv_bwd_onepass": 0,
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -134,6 +137,14 @@ def onepass(keys: int, hd: int, dtype: torch.dtype) -> bool:
     return bool(_lib().lct_attn_fwd_onepass(keys, hd, _DTYPES[dtype]))
 
 
+def onepass_bwd(keys: int, hd: int, dtype: torch.dtype) -> bool:
+    """Whether a packed, prefix or masked backward over ``keys`` keys takes
+    the one-pass kernel (one launch for dq, dk and dv) rather than the
+    streaming pair: the C side's rule, ``lct_attn_bwd_onepass``, the same
+    shapes as :func:`onepass`."""
+    return bool(_lib().lct_attn_bwd_onepass(keys, hd, _DTYPES[dtype]))
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
@@ -173,6 +184,7 @@ def qkv_attention_bwd_cuda(
     )
     _raise_on(err, "qkv_attention_bwd_cuda")
     LAUNCHES["qkv_bwd"] += 1
+    LAUNCHES["qkv_bwd_onepass"] += onepass_bwd(s, hd, qkv.dtype)
     TRACER.launch("qkv_bwd", (b, s, d, int(heads)))
     return dqkv
 

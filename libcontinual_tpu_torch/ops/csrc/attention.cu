@@ -5,6 +5,7 @@
 //
 // Replaces the Pallas TPU kernels of libcontinual_tpu/ops/attention.py:
 //   lct_qkv_*   packed qkv       attn_fwd_kernel <- _qkv_kernel
+//                                attn_bwd_dkdv_kernel<MODE, KEYS> (one-pass), or
 //                                attn_bwd_dq_kernel + attn_bwd_dkdv_kernel <- _qkv_bwd_kernel
 //   lct_pqkv_*  prefix keys/values, P rows of pk and pv (B, P, D) in front of each
 //               head's keys; one softmax over P + S keys, K and V never concatenated
@@ -29,9 +30,12 @@
 // expf a score. Every other forward streams the keys (mma.sync m16n8k16 at
 // bf16) in two passes over the key tiles so that the normalised P is rounded
 // before P . v, as the TPU bodies round it; lct_attn_fwd_onepass says which a
-// shape takes. The bf16 backward runs on mma.sync as a per-query-tile dq
-// kernel and a per-key-tile dk/dv kernel (no atomics). The f32 instantiations
-// are f32 FMA on the CUDA cores.
+// shape takes. The backward chooses at the same shapes
+// (lct_attn_bwd_onepass): there it is the one-pass kernel of
+// onepass_attention_bwd.cuh, one launch for dq, dk and dv on wgmma with the
+// head's Q, K, V and g staged once; elsewhere the bf16 backward runs on
+// mma.sync as a per-query-tile dq kernel and a per-key-tile dk/dv kernel. No
+// backward uses atomics. The f32 instantiations are f32 FMA on the CUDA cores.
 // attention_kernels.cuh states the design, the rounding points and what
 // bounds the kernels on an H100: the bytes (about 52 us forward and 91 us
 // backward at B 128, S 222; 9.4 us forward and 16.5 us backward for the
@@ -45,12 +49,19 @@
 #include "attention_kernels.cuh"
 #include "generic_attention.cuh"
 #include "onepass_attention.cuh"
+#include "onepass_attention_bwd.cuh"
 
 // Whether a forward of N = P + S keys at head dim hd and dtype takes the
 // one-pass kernel (1) or the streaming one (0): lct::onepass_fwd, the rule
 // every lct_*_fwd below follows.
 extern "C" int lct_attn_fwd_onepass(int N, int hd, int dtype) {
   return lct::onepass_fwd(N, hd, dtype) ? 1 : 0;
+}
+
+// The same for a backward: the one-pass kernel (1) or the streaming pair (0),
+// lct::onepass_bwd, the rule every lct_*_bwd below follows.
+extern "C" int lct_attn_bwd_onepass(int N, int hd, int dtype) {
+  return lct::onepass_bwd(N, hd, dtype) ? 1 : 0;
 }
 
 // ---------------------------------------------------------------- packed qkv
@@ -64,9 +75,9 @@ extern "C" int lct_qkv_fwd(const void* qkv, void* out, int B, int S, int H, int 
 
 extern "C" int lct_qkv_bwd(const void* qkv, const void* g, void* dqkv, void* stats, int B, int S,
                            int H, int hd, int dtype, float scale, void* stream) {
-  return (int)lct::attn_bwd<lct::kPlain>(qkv, nullptr, nullptr, 0, 0, nullptr, g, dqkv, nullptr,
-                                         nullptr, stats, B, S, 0, H, hd, dtype, scale,
-                                         static_cast<cudaStream_t>(stream));
+  return (int)lct::attn_bwd_any<lct::kPlain>(qkv, nullptr, nullptr, 0, 0, nullptr, g, dqkv,
+                                             nullptr, nullptr, stats, B, S, 0, H, hd, dtype, scale,
+                                             static_cast<cudaStream_t>(stream));
 }
 
 // ------------------------------------------------------------- prefix keys/values
@@ -86,9 +97,9 @@ extern "C" int lct_pqkv_bwd(const void* qkv, const void* pk, const void* pv, lon
                             long long pv_bstride, const void* g, void* dqkv, void* dpk, void* dpv,
                             void* stats, int B, int S, int P, int H, int hd, int dtype,
                             float scale, void* stream) {
-  return (int)lct::attn_bwd<lct::kPrefix>(qkv, pk, pv, pk_bstride, pv_bstride, nullptr, g, dqkv,
-                                          dpk, dpv, stats, B, S, P, H, hd, dtype, scale,
-                                          static_cast<cudaStream_t>(stream));
+  return (int)lct::attn_bwd_any<lct::kPrefix>(qkv, pk, pv, pk_bstride, pv_bstride, nullptr, g,
+                                              dqkv, dpk, dpv, stats, B, S, P, H, hd, dtype, scale,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // ------------------------------------------------------------------ masked
@@ -104,9 +115,9 @@ extern "C" int lct_mqkv_fwd(const void* qkv, const float* mask, void* out, int B
 extern "C" int lct_mqkv_bwd(const void* qkv, const float* mask, const void* g, void* dqkv,
                             void* stats, int B, int S, int H, int hd, int dtype, float scale,
                             void* stream) {
-  return (int)lct::attn_bwd<lct::kMasked>(qkv, nullptr, nullptr, 0, 0, mask, g, dqkv, nullptr,
-                                          nullptr, stats, B, S, 0, H, hd, dtype, scale,
-                                          static_cast<cudaStream_t>(stream));
+  return (int)lct::attn_bwd_any<lct::kMasked>(qkv, nullptr, nullptr, 0, 0, mask, g, dqkv,
+                                              nullptr, nullptr, stats, B, S, 0, H, hd, dtype, scale,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // ------------------------------------------------------------------ generic

@@ -78,8 +78,13 @@
 // so that 4 blocks share an SM. Shared memory: 5 tiles (Q, 2 K, 2 V) of
 // 64 x (HDP + 8) bf16, 46 KB at hd 64, whatever N.
 //
-// Backward: two kernels and no atomics, every sum in a fixed order, so two
-// calls give the same bits.
+// Backward. At bf16, hd <= 64 and at most 256 keys the backward is the
+// one-pass overload attn_bwd_dkdv_kernel<MODE, KEYS> of
+// onepass_attention_bwd.cuh (one launch for dq, dk and dv: the head's Q, K,
+// V and g staged once, S and dP formed twice, every product on wgmma);
+// onepass_bwd there chooses. Every other shape (f32, hd 65-128, more keys)
+// takes the streaming pair below: two kernels and no atomics, every sum in a
+// fixed order, so two calls give the same bits.
 //   * attn_bwd_dq_kernel, one block per 64-query tile: Q and g staged once;
 //     K and V stream in 64-key tiles, twice. Sweep 1 forms S = Q . K^T and
 //     dP = g . V^T and keeps each row's max m, sum l and

@@ -26,13 +26,17 @@ from libcontinual_tpu_torch.ops.attention import (
     _route,
     _split_heads,
     onepass,
+    onepass_bwd,
 )
 from libcontinual_tpu_torch.utils.trace import TRACER
 
 #: kernel launches per wrapper; a launch adds one here and nowhere else.
 #: ``mqkv_fwd_onepass`` counts the ``mqkv_fwd`` launches that took the
-#: one-pass kernel (``attention.onepass``)
-LAUNCHES: Dict[str, int] = {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0}
+#: one-pass kernel (``attention.onepass``), ``mqkv_bwd_onepass`` the
+#: ``mqkv_bwd`` launches that took the one-pass backward
+#: (``attention.onepass_bwd``)
+LAUNCHES: Dict[str, int] = {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0,
+                            "mqkv_bwd_onepass": 0}
 
 
 def reset_launches() -> None:
@@ -130,6 +134,7 @@ def masked_attention_bwd_cuda(
     )
     _raise_on(err, "masked_attention_bwd_cuda")
     LAUNCHES["mqkv_bwd"] += 1
+    LAUNCHES["mqkv_bwd_onepass"] += onepass_bwd(s, hd, qkv.dtype)
     TRACER.launch("mqkv_bwd", (b, s, d, int(heads)))
     return dqkv
 

@@ -31,13 +31,17 @@ from libcontinual_tpu_torch.ops.attention import (
     _route,
     _split_heads,
     onepass,
+    onepass_bwd,
 )
 from libcontinual_tpu_torch.utils.trace import TRACER
 
 #: kernel launches per wrapper; a launch adds one here and nowhere else.
 #: ``pqkv_fwd_onepass`` counts the ``pqkv_fwd`` launches that took the
-#: one-pass kernel (``attention.onepass``)
-LAUNCHES: Dict[str, int] = {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0}
+#: one-pass kernel (``attention.onepass``), ``pqkv_bwd_onepass`` the
+#: ``pqkv_bwd`` launches that took the one-pass backward
+#: (``attention.onepass_bwd``)
+LAUNCHES: Dict[str, int] = {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0,
+                            "pqkv_bwd_onepass": 0}
 
 
 def reset_launches() -> None:
@@ -174,6 +178,7 @@ def prefix_attention_bwd_cuda(
     )
     _raise_on(err, "prefix_attention_bwd_cuda")
     LAUNCHES["pqkv_bwd"] += 1
+    LAUNCHES["pqkv_bwd_onepass"] += onepass_bwd(p + s, hd, qkv.dtype)
     TRACER.launch("pqkv_bwd", (b, s, p, d, int(heads)))
     return dqkv, dpk, dpv
 

@@ -166,6 +166,31 @@ def test_cpu_tensors_count_no_onepass_launch(family):
     assert mod.LAUNCHES == dict.fromkeys(mod.LAUNCHES, 0)
 
 
+@pytest.mark.parametrize("family", ["qkv", "prefix", "masked"])
+def test_cpu_backward_counts_no_onepass_launch(family):
+    """A bf16 backward at a shape the one-pass backward takes on the card (hd
+    64, 20 keys) runs the plain version on a CPU tensor: the
+    ``*_bwd_onepass`` counter is there and stays 0, like every other."""
+    from libcontinual_tpu_torch.ops import masked_attention as MT
+    from libcontinual_tpu_torch.ops import prefix_attention as PT
+
+    qkv, g = _inputs(1, 20, 1, 64)
+    x, go = torch.from_numpy(qkv).bfloat16(), torch.from_numpy(g).bfloat16()
+    mod = {"qkv": T, "prefix": PT, "masked": MT}[family]
+    mod.reset_launches()
+    if family == "qkv":
+        grads = [T.qkv_attention_backward(x, go, 0.125, 1)]
+    elif family == "prefix":
+        pk = torch.zeros(1, 3, 64, dtype=torch.bfloat16)
+        grads = list(PT.prefix_attention_backward(x, pk, pk, go, 0.125, 1))
+    else:
+        grads = [MT.masked_attention_backward(x, torch.zeros(20, 20), go, 0.125, 1)]
+    assert grads[0].shape == (1, 20, 192) and all(d.dtype == torch.bfloat16 for d in grads)
+    key = {"qkv": "qkv_bwd_onepass", "prefix": "pqkv_bwd_onepass", "masked": "mqkv_bwd_onepass"}
+    assert key[family] in mod.LAUNCHES
+    assert mod.LAUNCHES == dict.fromkeys(mod.LAUNCHES, 0)
+
+
 def test_other_devices_raise():
     qkv = torch.zeros(1, 4, 48, device="meta")
     with pytest.raises(ValueError, match="no implementation"):

@@ -69,7 +69,7 @@ def test_autograd_function_launches_both_kernels(cuda):
     T.reset_launches()
     T.fused_qkv_attention(qkv, 0.25, 4).float().sum().backward()
     assert T.LAUNCHES == {**dict.fromkeys(T.LAUNCHES, 0), "qkv_fwd": 1, "qkv_bwd": 1,
-                          "qkv_fwd_onepass": 1}
+                          "qkv_fwd_onepass": 1, "qkv_bwd_onepass": 1}
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take(cuda):
@@ -133,7 +133,8 @@ def test_prefix_autograd_function_launches_both_kernels(cuda):
     pv = torch.randn(2, 3, 64, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     PT.reset_launches()
     PT.fused_prefix_attention(qkv, pk, pv, 0.25, 4).float().sum().backward()
-    assert PT.LAUNCHES == {"pqkv_fwd": 1, "pqkv_bwd": 1, "pqkv_fwd_onepass": 1}
+    assert PT.LAUNCHES == {"pqkv_fwd": 1, "pqkv_bwd": 1, "pqkv_fwd_onepass": 1,
+                           "pqkv_bwd_onepass": 1}
     assert pk.grad is not None and pv.grad is not None and pv.grad.abs().sum() > 0
 
 
@@ -182,12 +183,14 @@ def test_masked_kernels_match_plain(cuda, dtype, shape, kind):
     assert _err(dqkv, MT.masked_attention_bwd_plain(qkv, mask, go, scale, h)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("s", [150, 222, 300])
 @pytest.mark.parametrize("family", ["qkv", "prefix", "masked"])
-def test_backward_is_deterministic(cuda, family):
+def test_backward_is_deterministic(cuda, family, s):
     """Two calls on the same inputs give the same bits: no atomics, every
-    sum in a fixed order (bf16, several query and key tiles)."""
-    qkv, mask, go = _masked_inputs(cuda, (3, 150, 4, 64), torch.bfloat16, "random")
-    _, pk, pv, _ = _prefix_inputs(cuda, (3, 150, 10, 4, 64), torch.bfloat16, "image")
+    sum in a fixed order (bf16, several query and key tiles; S 150 and 222
+    on the one-pass kernel, S 300 on the streaming pair)."""
+    qkv, mask, go = _masked_inputs(cuda, (3, s, 4, 64), torch.bfloat16, "random")
+    _, pk, pv, _ = _prefix_inputs(cuda, (3, s, 10, 4, 64), torch.bfloat16, "image")
 
     def call():
         if family == "qkv":
@@ -251,6 +254,64 @@ def test_onepass_forward_engages_where_it_should_and_matches_plain(cuda, dtype, 
     assert torch.equal(first, second)
 
 
+#: (family, shape) of the one-pass backward's checks, as ONEPASS_CASES: keys
+#: N = P + S of 1, 63, 64, 65, 128, 129, 192, 255, 256 (the most it takes) and
+#: 257 and 300 (the streaming pair's); the ViT's 197 and 222 at odd B; prefixes
+#: of 5 and 10 rows (DualPrompt's 197 + 10), one whose first 64-key block
+#: straddles P and one past a whole block; the text tower's causal S 77; hd 20 (element copies), 48 and
+#: 128 (the streaming pair's)
+ONEPASS_BWD_CASES = [
+    *[("qkv", (2, n, 2, 64)) for n in (1, 63, 64, 65, 128, 129, 192, 255, 256, 257, 300)],
+    ("qkv", (3, 197, 4, 64)), ("qkv", (3, 222, 4, 64)), ("qkv", (2, 150, 3, 20)),
+    ("qkv", (2, 150, 3, 48)), ("qkv", (2, 200, 2, 128)),
+    ("prefix", (3, 197, 10, 4, 64)), ("prefix", (3, 217, 5, 4, 64)),
+    ("prefix", (2, 40, 30, 3, 20)), ("prefix", (2, 60, 70, 2, 64)), ("prefix", (2, 250, 6, 2, 64)),
+    ("prefix", (2, 250, 7, 2, 64)),
+    ("masked", (3, 77, 8, 64, "causal")), ("masked", (2, 100, 3, 48, "random")),
+    ("masked", (2, 256, 2, 64, "causal")), ("masked", (2, 257, 2, 64, "causal")),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ONEPASS_BWD_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_onepass_backward_engages_where_it_should_and_matches_plain(cuda, dtype, case):
+    """The backward against its plain version, at the streaming pair's
+    tolerance; the one-pass kernel takes it exactly at bf16, hd <= 64 and
+    N <= 256 (its counter and the C side's predicate say so, and the
+    forward's rule is the same), the streaming pair elsewhere; two calls give
+    the same bits."""
+    family, shape = case
+    p = 0
+    if family == "prefix":
+        b, s, p, h, hd = shape
+        qkv, pk, pv, go = _prefix_inputs(cuda, shape, dtype, "image")
+        mod, key, args = PT, "pqkv_bwd", (qkv, pk, pv, go)
+        kernel, plain = PT.prefix_attention_bwd_cuda, PT.prefix_attention_bwd_plain
+    elif family == "masked":
+        b, s, h, hd, kind = shape
+        qkv, mask, go = _masked_inputs(cuda, (b, s, h, hd), dtype, kind)
+        mod, key, args = MT, "mqkv_bwd", (qkv, mask, go)
+        kernel, plain = MT.masked_attention_bwd_cuda, MT.masked_attention_bwd_plain
+    else:
+        b, s, h, hd = shape
+        g = torch.Generator(device=cuda).manual_seed(4)
+        qkv = torch.randn(b, s, 3 * h * hd, device=cuda, generator=g).to(dtype)
+        go = torch.randn(b, s, h * hd, device=cuda, generator=g).to(dtype)
+        mod, key, args = T, "qkv_bwd", (qkv, go)
+        kernel, plain = T.qkv_attention_bwd_cuda, T.qkv_attention_bwd_plain
+    engages = dtype == torch.bfloat16 and hd <= 64 and p + s <= 256
+    assert T.onepass_bwd(p + s, hd, dtype) == engages == T.onepass(p + s, hd, dtype)
+    mod.reset_launches()
+    first, second = kernel(*args, hd ** -0.5, h), kernel(*args, hd ** -0.5, h)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[key] == 2 and mod.LAUNCHES[key + "_onepass"] == 2 * engages
+    first, second = (x if isinstance(x, tuple) else (x,) for x in (first, second))
+    ref = plain(*args, hd ** -0.5, h)
+    for a, r in zip(first, ref if isinstance(ref, tuple) else (ref,)):
+        assert a.shape == r.shape and _err(a, r) <= TOL[dtype]
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
 def test_masked_wrappers_refuse_a_wrong_mask(cuda):
     qkv = torch.zeros(1, 8, 192, device=cuda)
     with pytest.raises(ValueError, match="mask"):
@@ -287,8 +348,9 @@ def test_moe_adapter_step_launches_the_masked_backward_per_text_block(cuda):
     method.train_step(state, batch, 1e-3)
     torch.cuda.synchronize()
     depth = len(state.params["clip"].text.blocks)
-    # bf16, hd 16, 77 keys: every forward takes the one-pass kernel
-    assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1, "mqkv_fwd_onepass": depth}
+    # bf16, hd 16, 77 keys: every forward and backward takes the one-pass kernel
+    assert MT.LAUNCHES == {"mqkv_fwd": depth, "mqkv_bwd": depth - 1, "mqkv_fwd_onepass": depth,
+                           "mqkv_bwd_onepass": depth - 1}
 
 
 class _PlainQKV(torch.autograd.Function):

@@ -115,8 +115,8 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 def test_real_sources_share_one_header():
     """Two libraries: ``attention.cu`` on the shared headers, for the three
-    packed attention families (their one-pass forward in its own header) and
-    the generic forward, and ``conv.cu`` on
+    packed attention families (their one-pass forward and backward in headers
+    of their own) and the generic forward, and ``conv.cu`` on
     the packed kernels' header alone (its cp.async, ldmatrix and mma.sync
     primitives). Each exports every function its wrappers type, and nothing
     is typed twice."""
@@ -124,7 +124,8 @@ def test_real_sources_share_one_header():
 
     assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh",
                                                    "conv.cu", "generic_attention.cuh",
-                                                   "onepass_attention.cuh"]
+                                                   "onepass_attention.cuh",
+                                                   "onepass_attention_bwd.cuh"]
     assert tuple(_build.SIGNATURES) == _build.LIBRARIES == ("attention", "conv")
     src = {}
     for name in _build.LIBRARIES:
@@ -136,6 +137,9 @@ def test_real_sources_share_one_header():
     assert '#include "attention_kernels.cuh"' in src["attention"]
     assert '#include "generic_attention.cuh"' in src["attention"]
     assert '#include "onepass_attention.cuh"' in src["attention"]
+    assert '#include "onepass_attention_bwd.cuh"' in src["attention"]
+    # each one-pass kernel's predicate, exported beside the other
+    assert {"lct_attn_fwd_onepass", "lct_attn_bwd_onepass"} <= set(_build.SIGNATURES["attention"])
     assert re.findall(r'#include "(\w+\.cuh)"', src["conv"]) == ["attention_kernels.cuh"]
     assert {fn.split("_")[1] for fn in _build.SIGNATURES["attention"]} == {"qkv", "pqkv", "mqkv",
                                                                             "attn"}

@@ -166,7 +166,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     T.reset_launches()
     x = torch.from_numpy(qkv).requires_grad_()
     T.fused_masked_qkv_attention(x, torch.from_numpy(mask), 0.25, 2).backward(torch.from_numpy(g))
-    assert T.LAUNCHES == {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0}
+    assert T.LAUNCHES == {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0,
+                          "mqkv_bwd_onepass": 0}
     ref = T.masked_attention_bwd_plain(*(torch.from_numpy(a) for a in (qkv, mask, g)), 0.25, 2)
     assert torch.equal(x.grad, ref)
 

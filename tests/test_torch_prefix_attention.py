@@ -162,7 +162,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     T.reset_launches()
     ins = [torch.from_numpy(t).requires_grad_() for t in (qkv, pk, pv)]
     T.fused_prefix_attention(*ins, 0.25, 2).backward(torch.from_numpy(g))
-    assert T.LAUNCHES == {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0}
+    assert T.LAUNCHES == {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0,
+                          "pqkv_bwd_onepass": 0}
     ref = T.prefix_attention_bwd_plain(*(torch.from_numpy(t) for t in (qkv, pk, pv, g)), 0.25, 2)
     for t, r in zip(ins, ref):
         assert torch.equal(t.grad, r)
