@@ -47,8 +47,7 @@ SIGNATURES = {
         "lct_mqkv_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "lct_mqkv_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
         "lct_attn_max_head_dim": [],
-        "lct_attn_fwd_onepass": [_I, _I, _I],
-        "lct_attn_bwd_onepass": [_I, _I, _I],
+        "lct_attn_onepass": [_I, _I, _I],
         "lct_attn_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, *[_LL] * 9, _I, _I, _F, _P],
     },
     "conv": {

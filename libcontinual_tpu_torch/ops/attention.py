@@ -8,6 +8,14 @@ they are the plain PyTorch versions below, which keep the TPU kernel bodies'
 rounding points (P cast to the input dtype before ``P . v``; at bf16, dS cast
 before the dq/dk products). Any other device raises.
 
+That is the ``qkv`` mode of one packed-qkv op with three: the ``prefix`` mode
+(``prefix_attention.py``) adds per-image prompt keys and values, the
+``masked`` mode (``masked_attention.py``) an additive mask. Each mode module
+holds its plain versions, input checks and kernel wrappers; this module holds
+what the three share: one autograd node (:class:`_PackedAttention`), one
+launch record (:data:`LAUNCHES`, :func:`_launched`) and the one-pass rule
+(:func:`onepass`).
+
 Counterpart, too, of the JAX file's generic op, ``attention`` /
 ``fused_attention``: q ``(B, H, Sq, D)``, k and v ``(B, H, Skv, D)`` with any
 ``Sq`` and ``Skv``. Its forward is the kernel of ``csrc/generic_attention.cuh``
@@ -26,6 +34,7 @@ attention``.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import math
 from typing import Dict, Optional, Tuple
 
@@ -33,16 +42,16 @@ import torch
 
 from libcontinual_tpu_torch.utils.trace import TRACER
 
-#: kernel launches per wrapper; a launch adds one here and nowhere else (while
-#: the tracer records, the packed, prefix and masked wrappers also hand each
-#: launch's (kind, shape) to ``TRACER.launch``). ``qkv_fwd_onepass`` counts the
-#: ``qkv_fwd`` launches that took the one-pass kernel (:func:`onepass`),
-#: ``qkv_bwd_onepass`` the ``qkv_bwd`` launches that took the one-pass
-#: backward (:func:`onepass_bwd`)
+#: kernel launches per kind, for every kernel of ``csrc/attention.cu``: the
+#: packed (``qkv_*``), prefix (``pqkv_*``) and masked (``mqkv_*``) modes of the
+#: packed-qkv op, counted by :func:`_launched` only (``<kind>_onepass``: the
+#: ``<kind>`` launches that took a one-pass kernel), and the generic forward
+#: and its variants (``attn_fwd*``)
 LAUNCHES: Dict[str, int] = {
-    "qkv_fwd": 0, "qkv_bwd": 0, "attn_fwd": 0, "attn_fwd_v2": 0, "attn_fwd_fast": 0,
-    "attn_fwd_mmonly": 0, "attn_fwd_qblock": 0, "attn_fwd_flash": 0, "qkv_fwd_onepass": 0,
-    "qkv_bwd_onepass": 0,
+    **{kind + tail: 0 for kind in ("qkv_fwd", "qkv_bwd", "pqkv_fwd", "pqkv_bwd", "mqkv_fwd",
+                                   "mqkv_bwd") for tail in ("", "_onepass")},
+    **dict.fromkeys(("attn_fwd", "attn_fwd_v2", "attn_fwd_fast", "attn_fwd_mmonly",
+                     "attn_fwd_qblock", "attn_fwd_flash"), 0),
 }
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -130,19 +139,11 @@ def _check_packed(qkv: torch.Tensor, heads: int, name: str) -> Tuple[int, int, i
 
 
 def onepass(keys: int, hd: int, dtype: torch.dtype) -> bool:
-    """Whether a packed, prefix or masked forward over ``keys`` keys (P + S)
-    at head dim ``hd`` takes the one-pass kernel (bf16, hd <= 64, at most
-    256 keys) rather than the streaming one: the C side's rule,
-    ``lct_attn_fwd_onepass``."""
-    return bool(_lib().lct_attn_fwd_onepass(keys, hd, _DTYPES[dtype]))
-
-
-def onepass_bwd(keys: int, hd: int, dtype: torch.dtype) -> bool:
-    """Whether a packed, prefix or masked backward over ``keys`` keys takes
-    the one-pass kernel (one launch for dq, dk and dv) rather than the
-    streaming pair: the C side's rule, ``lct_attn_bwd_onepass``, the same
-    shapes as :func:`onepass`."""
-    return bool(_lib().lct_attn_bwd_onepass(keys, hd, _DTYPES[dtype]))
+    """Whether a packed, prefix or masked forward or backward over ``keys``
+    keys (P + S) at head dim ``hd`` takes a one-pass kernel (bf16, hd <= 64,
+    at most 256 keys) rather than the streaming ones: the C side's rule,
+    ``lct_attn_onepass``, one for both directions."""
+    return bool(_lib().lct_attn_onepass(keys, hd, _DTYPES[dtype]))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -150,18 +151,42 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_grad(g: torch.Tensor, qkv: torch.Tensor, b: int, s: int, d: int,
+                name: str) -> torch.Tensor:
+    """``g`` as a backward kernel reads it: contiguous, (B, S, D), qkv's dtype
+    and device."""
+    g = g.contiguous()
+    if g.shape != (b, s, d) or g.dtype != qkv.dtype or g.device != qkv.device:
+        raise ValueError(
+            f"{name}: gradient {tuple(g.shape)} {g.dtype} on {g.device} does not match "
+            f"qkv {tuple(qkv.shape)} {qkv.dtype}"
+        )
+    return g
+
+
+def _launched(kind: str, shape: Tuple[int, ...], keys: int, hd: int, dtype: torch.dtype) -> None:
+    """Records one launch of a packed, prefix or masked kernel wrapper,
+    ``kind`` (``qkv_fwd``, ``pqkv_bwd``, ...) over ``keys`` keys: its count
+    and one-pass count in :data:`LAUNCHES`, and for the tracer its ``shape``,
+    (B, S, D, heads) or (B, S, P, D, heads) for the prefix mode."""
+    LAUNCHES[kind] += 1
+    LAUNCHES[kind + "_onepass"] += onepass(keys, hd, dtype)
+    TRACER.launch(kind, shape)
+
+
 def qkv_attention_cuda(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
     b, s, d, hd = _check_packed(qkv, heads, "qkv_attention_cuda")
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_qkv_fwd(
         qkv.data_ptr(), out.data_ptr(), b, s, heads, hd, _DTYPES[qkv.dtype],
-        float(scale), stream,
+        float(scale), _stream(qkv),
     )
     _raise_on(err, "qkv_attention_cuda")
-    LAUNCHES["qkv_fwd"] += 1
-    LAUNCHES["qkv_fwd_onepass"] += onepass(s, hd, qkv.dtype)
-    TRACER.launch("qkv_fwd", (b, s, d, int(heads)))
+    _launched("qkv_fwd", (b, s, d, int(heads)), s, hd, qkv.dtype)
     return out
 
 
@@ -169,23 +194,15 @@ def qkv_attention_bwd_cuda(
     qkv: torch.Tensor, g: torch.Tensor, scale: float, heads: int
 ) -> torch.Tensor:
     b, s, d, hd = _check_packed(qkv, heads, "qkv_attention_bwd_cuda")
-    g = g.contiguous()
-    if g.shape != (b, s, d) or g.dtype != qkv.dtype or g.device != qkv.device:
-        raise ValueError(
-            f"qkv_attention_bwd_cuda: gradient {tuple(g.shape)} {g.dtype} on "
-            f"{g.device} does not match qkv {tuple(qkv.shape)} {qkv.dtype}"
-        )
+    g = _check_grad(g, qkv, b, s, d, "qkv_attention_bwd_cuda")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, heads, s), dtype=torch.float32, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_qkv_bwd(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        b, s, heads, hd, _DTYPES[qkv.dtype], float(scale), stream,
+        b, s, heads, hd, _DTYPES[qkv.dtype], float(scale), _stream(qkv),
     )
     _raise_on(err, "qkv_attention_bwd_cuda")
-    LAUNCHES["qkv_bwd"] += 1
-    LAUNCHES["qkv_bwd_onepass"] += onepass_bwd(s, hd, qkv.dtype)
-    TRACER.launch("qkv_bwd", (b, s, d, int(heads)))
+    _launched("qkv_bwd", (b, s, d, int(heads)), s, hd, qkv.dtype)
     return dqkv
 
 
@@ -198,40 +215,60 @@ def _route(t: torch.Tensor, name: str) -> str:
     raise ValueError(f"{name}: no implementation for device {t.device}")
 
 
-def qkv_attention_forward(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
-    if _route(qkv, "qkv_attention_forward") == "cuda":
-        return qkv_attention_cuda(qkv, scale, heads)
-    return qkv_attention_plain(qkv, scale, heads)
+#: the packed-qkv op's modes: mode -> (module, stem). The module holds the
+#: mode's kernel wrappers ``<stem>_cuda`` and ``<stem>_bwd_cuda`` and its plain
+#: versions ``<stem>_plain`` and ``<stem>_bwd_plain``; each takes ``(qkv,
+#: *extra, scale, heads)``, the backward ``g`` before ``scale``. The extra
+#: inputs are the prefix's ``pk``, ``pv`` and the masked mode's ``mask``.
+_MODES: Dict[str, Tuple[str, str]] = {
+    "qkv": (__name__, "qkv_attention"),
+    "prefix": ("libcontinual_tpu_torch.ops.prefix_attention", "prefix_attention"),
+    "masked": ("libcontinual_tpu_torch.ops.masked_attention", "masked_attention"),
+}
 
 
-def qkv_attention_backward(
-    qkv: torch.Tensor, g: torch.Tensor, scale: float, heads: int
-) -> torch.Tensor:
-    if _route(qkv, "qkv_attention_backward") == "cuda":
-        return qkv_attention_bwd_cuda(qkv, g, scale, heads)
-    return qkv_attention_bwd_plain(qkv, g, scale, heads)
+def _routed(mode: str, backward: bool, qkv: torch.Tensor, *args):
+    """One direction of ``mode`` on qkv's device: the kernel wrapper on a CUDA
+    tensor, the plain version on a CPU tensor; any other device raises. The
+    function is looked up in its module at every call, so a wrapper set there
+    (as ``bench_port``'s launch recorder sets one) sees every launch."""
+    module, stem = _MODES[mode]
+    direction = "backward" if backward else "forward"
+    impl = "cuda" if _route(qkv, f"{stem} {direction}") == "cuda" else "plain"
+    name = f"{stem}_bwd_{impl}" if backward else f"{stem}_{impl}"
+    return getattr(importlib.import_module(module), name)(qkv, *args)
 
 
-class _FusedQKVAttention(torch.autograd.Function):
-    """Saves only qkv: the backward recomputes the probabilities, as
-    ``_qkv_attention_core``'s custom VJP does."""
+class _PackedAttention(torch.autograd.Function):
+    """The packed-qkv op in any of its modes. Saves only qkv and the mode's
+    extra inputs: the backward recomputes the probabilities, as the JAX
+    package's custom VJPs (``_qkv_attention_core`` and its prefix and masked
+    siblings) do. A mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, scale, heads):
-        ctx.save_for_backward(qkv)
-        ctx.scale, ctx.heads = scale, heads
-        return qkv_attention_forward(qkv, scale, heads)
+    def forward(ctx, mode, scale, heads, qkv, *extra):
+        ctx.save_for_backward(qkv, *extra)
+        ctx.mode, ctx.scale, ctx.heads = mode, scale, heads
+        return _routed(mode, False, qkv, *extra, scale, heads)
 
     @staticmethod
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        return qkv_attention_backward(qkv, g, ctx.scale, ctx.heads), None, None
+        qkv, *extra = ctx.saved_tensors
+        grads = _routed(ctx.mode, True, qkv, *extra, g, ctx.scale, ctx.heads)
+        if isinstance(grads, torch.Tensor):  # dqkv alone: a mask gets no gradient
+            grads = (grads, *[None] * len(extra))
+        return (None, None, None, *grads)
+
+
+def _packed_attention(mode: str, qkv: torch.Tensor, scale: float, heads: int,
+                      *extra: torch.Tensor) -> torch.Tensor:
+    return _PackedAttention.apply(mode, float(scale), int(heads), qkv, *extra)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
     """Self-attention straight off the packed qkv tensor:
     ``(B, S, 3D) -> (B, S, D)``, differentiable."""
-    return _FusedQKVAttention.apply(qkv, float(scale), int(heads))
+    return _packed_attention("qkv", qkv, scale, heads)
 
 
 # ------------------------------------------------------- generic attention
@@ -353,11 +390,10 @@ def _check_generic(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _generic_cuda(q, k, v, mode: int, mult: float, name: str) -> torch.Tensor:
     b, h, sq, skv, hd = _check_generic(q, k, v, name)
     out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().lct_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, skv, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], _DTYPES[q.dtype], mode,
-        float(mult), stream,
+        float(mult), _stream(q),
     )
     _raise_on(err, name)
     return out

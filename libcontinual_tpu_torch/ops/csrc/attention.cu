@@ -29,11 +29,10 @@
 // query tile's whole score row in registers, wgmma for both products, one
 // expf a score. Every other forward streams the keys (mma.sync m16n8k16 at
 // bf16) in two passes over the key tiles so that the normalised P is rounded
-// before P . v, as the TPU bodies round it; lct_attn_fwd_onepass says which a
-// shape takes. The backward chooses at the same shapes
-// (lct_attn_bwd_onepass): there it is the one-pass kernel of
-// onepass_attention_bwd.cuh, one launch for dq, dk and dv on wgmma with the
-// head's Q, K, V and g staged once; elsewhere the bf16 backward runs on
+// before P . v, as the TPU bodies round it. The backward chooses by the same
+// rule (lct_attn_onepass says which a shape takes): there it is the one-pass
+// kernel of onepass_attention_bwd.cuh, one launch for dq, dk and dv on wgmma
+// with the head's Q, K, V and g staged once; elsewhere the bf16 backward runs on
 // mma.sync as a per-query-tile dq kernel and a per-key-tile dk/dv kernel. No
 // backward uses atomics. The f32 instantiations are f32 FMA on the CUDA cores.
 // attention_kernels.cuh states the design, the rounding points and what
@@ -51,17 +50,11 @@
 #include "onepass_attention.cuh"
 #include "onepass_attention_bwd.cuh"
 
-// Whether a forward of N = P + S keys at head dim hd and dtype takes the
-// one-pass kernel (1) or the streaming one (0): lct::onepass_fwd, the rule
-// every lct_*_fwd below follows.
-extern "C" int lct_attn_fwd_onepass(int N, int hd, int dtype) {
-  return lct::onepass_fwd(N, hd, dtype) ? 1 : 0;
-}
-
-// The same for a backward: the one-pass kernel (1) or the streaming pair (0),
-// lct::onepass_bwd, the rule every lct_*_bwd below follows.
-extern "C" int lct_attn_bwd_onepass(int N, int hd, int dtype) {
-  return lct::onepass_bwd(N, hd, dtype) ? 1 : 0;
+// Whether a forward or backward of N = P + S keys at head dim hd and dtype
+// takes a one-pass kernel (1) or the streaming ones (0): lct::onepass, the
+// rule every lct_*_fwd and lct_*_bwd below follows.
+extern "C" int lct_attn_onepass(int N, int hd, int dtype) {
+  return lct::onepass(N, hd, dtype) ? 1 : 0;
 }
 
 // ---------------------------------------------------------------- packed qkv

@@ -63,7 +63,7 @@
 // Forward. At bf16, hd <= 64 and at most 256 keys the forward is the
 // one-pass overload attn_fwd_kernel<MODE, KEYS> of onepass_attention.cuh
 // (wgmma, a query tile's whole score row in registers, one expf a score);
-// onepass_fwd there chooses. Every other shape (f32, hd 65-128, more keys)
+// onepass there chooses. Every other shape (f32, hd 65-128, more keys)
 // takes the streaming attn_fwd_kernel<T, HDP, MODE> below, one block per
 // 64-query tile. Because the TPU body rounds the *normalised* P before
 // P . v, the block makes two passes over the key tiles: pass 1 forms the
@@ -82,9 +82,9 @@
 // one-pass overload attn_bwd_dkdv_kernel<MODE, KEYS> of
 // onepass_attention_bwd.cuh (one launch for dq, dk and dv: the head's Q, K,
 // V and g staged once, S and dP formed twice, every product on wgmma);
-// onepass_bwd there chooses. Every other shape (f32, hd 65-128, more keys)
-// takes the streaming pair below: two kernels and no atomics, every sum in a
-// fixed order, so two calls give the same bits.
+// onepass, the forward's rule, chooses. Every other shape (f32, hd 65-128,
+// more keys) takes the streaming pair below: two kernels and no atomics,
+// every sum in a fixed order, so two calls give the same bits.
 //   * attn_bwd_dq_kernel, one block per 64-query tile: Q and g staged once;
 //     K and V stream in 64-key tiles, twice. Sweep 1 forms S = Q . K^T and
 //     dP = g . V^T and keeps each row's max m, sum l and

@@ -3,8 +3,8 @@
 // attn_fwd_kernel (template arguments <MODE, KEYS>) beside the streaming
 // kernel of attention_kernels.cuh, which keeps every other shape (f32, hd
 // 65-128, more than 256 keys). attn_fwd_any below is the one place that
-// chooses between them, from the shape alone (onepass_fwd); attention.cu's
-// entry points call it and export the predicate (lct_attn_fwd_onepass).
+// chooses between them, from the shape alone (onepass); attention.cu's entry
+// points call it and export the predicate (lct_attn_onepass).
 //
 // Replaces, at those shapes, the TPU kernels _qkv_kernel, _pqkv_kernel and
 // _mqkv_kernel (libcontinual_tpu/ops/attention.py), with their rounding
@@ -67,9 +67,12 @@ namespace lct {
 constexpr int kOnePassKeys = 256;  // the most keys (P + S) the one-pass forward takes
 constexpr int kOnePassHd = 64;     // its head dim: hd <= 64, zero-padded to 64 in shared memory
 
-// Whether a forward of N keys at head dim hd and dtype (0 f32, 1 bf16) takes
-// the one-pass kernel; every other forward takes the streaming one.
-inline bool onepass_fwd(int N, int hd, int dtype) {
+// Whether a forward or backward of N keys at head dim hd and dtype (0 f32, 1
+// bf16) takes a one-pass kernel; every other shape takes the streaming ones.
+// One rule for both directions: both one-pass kernels hold a head of at most
+// kOnePassKeys keys at hd <= kOnePassHd on chip, so a shape's forward and
+// backward choose alike.
+inline bool onepass(int N, int hd, int dtype) {
   return dtype == 1 && N >= 1 && N <= kOnePassKeys && hd >= 1 && hd <= kOnePassHd;
 }
 
@@ -413,7 +416,7 @@ cudaError_t launch_fwd_onepass(const void* qkv, const void* pk, const void* pv,
   return cudaGetLastError();
 }
 
-// The forward of any supported shape: the one-pass kernel where onepass_fwd
+// The forward of any supported shape: the one-pass kernel where onepass
 // takes it, the streaming kernel elsewhere.
 template <int MODE>
 cudaError_t attn_fwd_any(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
@@ -424,7 +427,7 @@ cudaError_t attn_fwd_any(const void* qkv, const void* pk, const void* pv, int64_
 #define LCT_ONEPASS(KEYS)                                                                \
   return launch_fwd_onepass<MODE, KEYS>(qkv, pk, pv, pk_bstride, pv_bstride, mask, out, B, S, \
                                         P, H, hd, scale, st)
-  if (onepass_fwd(P + S, hd, dtype)) {  // the keys rounded up to 64
+  if (onepass(P + S, hd, dtype)) {  // the keys rounded up to 64
     if (P + S <= 64) LCT_ONEPASS(64);
     if (P + S <= 128) LCT_ONEPASS(128);
     if (P + S <= 192) LCT_ONEPASS(192);

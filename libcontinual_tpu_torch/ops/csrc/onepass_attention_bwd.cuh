@@ -4,10 +4,11 @@
 // and dv in one launch, beside the streaming pair of attention_kernels.cuh
 // (attn_bwd_dq_kernel + attn_bwd_dkdv_kernel), which keeps every other shape
 // (f32, hd 65-128, more than 256 keys). attn_bwd_any below is the one place
-// that chooses between them, from the shape alone (onepass_bwd); attention.cu's
-// entry points call it and export the predicate (lct_attn_bwd_onepass). (The
-// overload keeps the dk/dv kernel's name, as the one-pass forward keeps
-// attn_fwd_kernel's: the keys are its accumulator rows, as there.)
+// that chooses between them, from the shape alone (onepass, the forward's
+// rule); attention.cu's entry points call it and export the predicate
+// (lct_attn_onepass). (The overload keeps the dk/dv kernel's name, as the
+// one-pass forward keeps attn_fwd_kernel's: the keys are its accumulator
+// rows, as there.)
 //
 // Replaces, at those shapes, the TPU kernels _qkv_bwd_kernel, _pqkv_bwd_kernel
 // and _mqkv_bwd_kernel (libcontinual_tpu/ops/attention.py), with their rounding
@@ -68,12 +69,6 @@
 #include "onepass_attention.cuh"
 
 namespace lct {
-
-// Whether a backward of N keys at head dim hd and dtype (0 f32, 1 bf16) takes
-// the one-pass kernel; every other backward takes the streaming pair. The
-// forward's rule: both hold a head of at most kOnePassKeys keys at hd <=
-// kOnePassHd on chip, so a shape's forward and backward choose alike.
-inline bool onepass_bwd(int N, int hd, int dtype) { return onepass_fwd(N, hd, dtype); }
 
 constexpr int kBwdChunk = 32;   // queries a chunk of sweep 2
 constexpr int kPanelBufs = 4;   // rotating buffers of the chunks' dS panels
@@ -497,7 +492,7 @@ cudaError_t launch_bwd_onepass(const void* qkv, const void* pk, const void* pv,
   return cudaGetLastError();
 }
 
-// The backward of any supported shape: the one-pass kernel where onepass_bwd
+// The backward of any supported shape: the one-pass kernel where onepass
 // takes it, the streaming pair elsewhere (which alone uses `stats`).
 template <int MODE>
 cudaError_t attn_bwd_any(const void* qkv, const void* pk, const void* pv, int64_t pk_bstride,
@@ -509,7 +504,7 @@ cudaError_t attn_bwd_any(const void* qkv, const void* pk, const void* pv, int64_
 #define LCT_ONEPASS(KEYS)                                                                  \
   return launch_bwd_onepass<MODE, KEYS>(qkv, pk, pv, pk_bstride, pv_bstride, mask, g, dqkv, \
                                         dpk, dpv, B, S, P, H, hd, scale, st)
-  if (onepass_bwd(P + S, hd, dtype)) {  // the keys rounded up to 64
+  if (onepass(P + S, hd, dtype)) {  // the keys rounded up to 64
     if (P + S <= 64) LCT_ONEPASS(64);
     if (P + S <= 128) LCT_ONEPASS(128);
     if (P + S <= 192) LCT_ONEPASS(192);

@@ -10,38 +10,31 @@ plain PyTorch versions below, which keep the TPU kernel bodies' rounding
 points: ``s = (q . k^T in f32) * scale + mask``, P cast to the input dtype
 before ``P . v``, and in the backward dS cast before the dq/dk products. Any
 other device raises.
+
+This is the ``masked`` mode of the packed-qkv op of ``ops/attention.py``,
+whose autograd node routes by device and whose ``LAUNCHES`` (imported here)
+counts the launches; this module holds the mode's plain versions, input
+checks and kernel wrappers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-from libcontinual_tpu_torch.ops.attention import (
+from libcontinual_tpu_torch.ops.attention import (  # noqa: F401 (LAUNCHES)
+    LAUNCHES,
     _DTYPES,
+    _check_grad,
     _check_packed,
+    _launched,
     _lib,
+    _packed_attention,
     _raise_on,
-    _route,
     _split_heads,
-    onepass,
-    onepass_bwd,
+    _stream,
 )
-from libcontinual_tpu_torch.utils.trace import TRACER
-
-#: kernel launches per wrapper; a launch adds one here and nowhere else.
-#: ``mqkv_fwd_onepass`` counts the ``mqkv_fwd`` launches that took the
-#: one-pass kernel (``attention.onepass``), ``mqkv_bwd_onepass`` the
-#: ``mqkv_bwd`` launches that took the one-pass backward
-#: (``attention.onepass_bwd``)
-LAUNCHES: Dict[str, int] = {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0,
-                            "mqkv_bwd_onepass": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _masked_probs(q, k, mask, scale) -> torch.Tensor:
@@ -103,15 +96,12 @@ def masked_attention_cuda(
 ) -> torch.Tensor:
     b, s, d, hd = _check(qkv, mask, heads, "masked_attention_cuda")
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_mqkv_fwd(
         qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), b, s, heads, hd,
-        _DTYPES[qkv.dtype], float(scale), stream,
+        _DTYPES[qkv.dtype], float(scale), _stream(qkv),
     )
     _raise_on(err, "masked_attention_cuda")
-    LAUNCHES["mqkv_fwd"] += 1
-    LAUNCHES["mqkv_fwd_onepass"] += onepass(s, hd, qkv.dtype)
-    TRACER.launch("mqkv_fwd", (b, s, d, int(heads)))
+    _launched("mqkv_fwd", (b, s, d, int(heads)), s, hd, qkv.dtype)
     return out
 
 
@@ -119,55 +109,16 @@ def masked_attention_bwd_cuda(
     qkv: torch.Tensor, mask: torch.Tensor, g: torch.Tensor, scale: float, heads: int
 ) -> torch.Tensor:
     b, s, d, hd = _check(qkv, mask, heads, "masked_attention_bwd_cuda")
-    g = g.contiguous()
-    if g.shape != (b, s, d) or g.dtype != qkv.dtype or g.device != qkv.device:
-        raise ValueError(
-            f"masked_attention_bwd_cuda: gradient {tuple(g.shape)} {g.dtype} on "
-            f"{g.device} does not match qkv {tuple(qkv.shape)} {qkv.dtype}"
-        )
+    g = _check_grad(g, qkv, b, s, d, "masked_attention_bwd_cuda")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, heads, s), dtype=torch.float32, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_mqkv_bwd(
         qkv.data_ptr(), mask.data_ptr(), g.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-        b, s, heads, hd, _DTYPES[qkv.dtype], float(scale), stream,
+        b, s, heads, hd, _DTYPES[qkv.dtype], float(scale), _stream(qkv),
     )
     _raise_on(err, "masked_attention_bwd_cuda")
-    LAUNCHES["mqkv_bwd"] += 1
-    LAUNCHES["mqkv_bwd_onepass"] += onepass_bwd(s, hd, qkv.dtype)
-    TRACER.launch("mqkv_bwd", (b, s, d, int(heads)))
+    _launched("mqkv_bwd", (b, s, d, int(heads)), s, hd, qkv.dtype)
     return dqkv
-
-
-# ---------------------------------------------------------------- dispatch
-
-
-def masked_attention_forward(qkv, mask, scale: float, heads: int) -> torch.Tensor:
-    if _route(qkv, "masked_attention_forward") == "cuda":
-        return masked_attention_cuda(qkv, mask, scale, heads)
-    return masked_attention_plain(qkv, mask, scale, heads)
-
-
-def masked_attention_backward(qkv, mask, g, scale: float, heads: int) -> torch.Tensor:
-    if _route(qkv, "masked_attention_backward") == "cuda":
-        return masked_attention_bwd_cuda(qkv, mask, g, scale, heads)
-    return masked_attention_bwd_plain(qkv, mask, g, scale, heads)
-
-
-class _FusedMaskedAttention(torch.autograd.Function):
-    """Saves only qkv and the mask: the backward recomputes the
-    probabilities, as ``_masked_qkv_attention_core``'s custom VJP does."""
-
-    @staticmethod
-    def forward(ctx, qkv, mask, scale, heads):
-        ctx.save_for_backward(qkv, mask)
-        ctx.scale, ctx.heads = scale, heads
-        return masked_attention_forward(qkv, mask, scale, heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        qkv, mask = ctx.saved_tensors
-        return masked_attention_backward(qkv, mask, g, ctx.scale, ctx.heads), None, None, None
 
 
 def fused_masked_qkv_attention(
@@ -175,4 +126,4 @@ def fused_masked_qkv_attention(
 ) -> torch.Tensor:
     """Additive-mask self-attention straight off the packed qkv tensor:
     ``(B, S, 3D), (S, S) -> (B, S, D)``, differentiable in qkv."""
-    return _FusedMaskedAttention.apply(qkv, mask, float(scale), int(heads))
+    return _packed_attention("masked", qkv, scale, heads, mask)

@@ -15,38 +15,31 @@ products. Any other device raises.
 ``pk`` and ``pv`` may be views: the kernels take any batch stride (0 for a
 prompt broadcast over the batch) as long as each image's rows are
 contiguous. Their gradients are always per image, ``(B, P, D)``.
+
+This is the ``prefix`` mode of the packed-qkv op of ``ops/attention.py``,
+whose autograd node routes by device and whose ``LAUNCHES`` (imported here)
+counts the launches; this module holds the mode's plain versions, input
+checks and kernel wrappers.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
-from libcontinual_tpu_torch.ops.attention import (
+from libcontinual_tpu_torch.ops.attention import (  # noqa: F401 (LAUNCHES)
+    LAUNCHES,
     _DTYPES,
+    _check_grad,
     _check_packed,
+    _launched,
     _lib,
+    _packed_attention,
     _raise_on,
-    _route,
     _split_heads,
-    onepass,
-    onepass_bwd,
+    _stream,
 )
-from libcontinual_tpu_torch.utils.trace import TRACER
-
-#: kernel launches per wrapper; a launch adds one here and nowhere else.
-#: ``pqkv_fwd_onepass`` counts the ``pqkv_fwd`` launches that took the
-#: one-pass kernel (``attention.onepass``), ``pqkv_bwd_onepass`` the
-#: ``pqkv_bwd`` launches that took the one-pass backward
-#: (``attention.onepass_bwd``)
-LAUNCHES: Dict[str, int] = {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0,
-                            "pqkv_bwd_onepass": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _prefix_heads(p: torch.Tensor, heads: int) -> torch.Tensor:
@@ -143,15 +136,12 @@ def prefix_attention_cuda(
 ) -> torch.Tensor:
     pk, pv, (b, s, p, d, hd) = _check(qkv, pk, pv, heads, "prefix_attention_cuda")
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_pqkv_fwd(
         qkv.data_ptr(), pk.data_ptr(), pv.data_ptr(), pk.stride(0), pv.stride(0),
-        out.data_ptr(), b, s, p, heads, hd, _DTYPES[qkv.dtype], float(scale), stream,
+        out.data_ptr(), b, s, p, heads, hd, _DTYPES[qkv.dtype], float(scale), _stream(qkv),
     )
     _raise_on(err, "prefix_attention_cuda")
-    LAUNCHES["pqkv_fwd"] += 1
-    LAUNCHES["pqkv_fwd_onepass"] += onepass(p + s, hd, qkv.dtype)
-    TRACER.launch("pqkv_fwd", (b, s, p, d, int(heads)))
+    _launched("pqkv_fwd", (b, s, p, d, int(heads)), p + s, hd, qkv.dtype)
     return out
 
 
@@ -160,59 +150,19 @@ def prefix_attention_bwd_cuda(
     scale: float, heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     pk, pv, (b, s, p, d, hd) = _check(qkv, pk, pv, heads, "prefix_attention_bwd_cuda")
-    g = g.contiguous()
-    if g.shape != (b, s, d) or g.dtype != qkv.dtype or g.device != qkv.device:
-        raise ValueError(
-            f"prefix_attention_bwd_cuda: gradient {tuple(g.shape)} {g.dtype} on "
-            f"{g.device} does not match qkv {tuple(qkv.shape)} {qkv.dtype}"
-        )
+    g = _check_grad(g, qkv, b, s, d, "prefix_attention_bwd_cuda")
     dqkv = torch.empty_like(qkv)
     dpk = torch.empty((b, p, d), dtype=qkv.dtype, device=qkv.device)
     dpv = torch.empty_like(dpk)
     stats = torch.empty((3, b, heads, s), dtype=torch.float32, device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = _lib().lct_pqkv_bwd(
         qkv.data_ptr(), pk.data_ptr(), pv.data_ptr(), pk.stride(0), pv.stride(0),
         g.data_ptr(), dqkv.data_ptr(), dpk.data_ptr(), dpv.data_ptr(), stats.data_ptr(),
-        b, s, p, heads, hd, _DTYPES[qkv.dtype], float(scale), stream,
+        b, s, p, heads, hd, _DTYPES[qkv.dtype], float(scale), _stream(qkv),
     )
     _raise_on(err, "prefix_attention_bwd_cuda")
-    LAUNCHES["pqkv_bwd"] += 1
-    LAUNCHES["pqkv_bwd_onepass"] += onepass_bwd(p + s, hd, qkv.dtype)
-    TRACER.launch("pqkv_bwd", (b, s, p, d, int(heads)))
+    _launched("pqkv_bwd", (b, s, p, d, int(heads)), p + s, hd, qkv.dtype)
     return dqkv, dpk, dpv
-
-
-# ---------------------------------------------------------------- dispatch
-
-
-def prefix_attention_forward(qkv, pk, pv, scale: float, heads: int) -> torch.Tensor:
-    if _route(qkv, "prefix_attention_forward") == "cuda":
-        return prefix_attention_cuda(qkv, pk, pv, scale, heads)
-    return prefix_attention_plain(qkv, pk, pv, scale, heads)
-
-
-def prefix_attention_backward(qkv, pk, pv, g, scale: float, heads: int):
-    if _route(qkv, "prefix_attention_backward") == "cuda":
-        return prefix_attention_bwd_cuda(qkv, pk, pv, g, scale, heads)
-    return prefix_attention_bwd_plain(qkv, pk, pv, g, scale, heads)
-
-
-class _FusedPrefixAttention(torch.autograd.Function):
-    """Saves only qkv, pk and pv: the backward recomputes the probabilities,
-    as ``_prefix_attention_core``'s custom VJP does."""
-
-    @staticmethod
-    def forward(ctx, qkv, pk, pv, scale, heads):
-        ctx.save_for_backward(qkv, pk, pv)
-        ctx.scale, ctx.heads = scale, heads
-        return prefix_attention_forward(qkv, pk, pv, scale, heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        qkv, pk, pv = ctx.saved_tensors
-        dqkv, dpk, dpv = prefix_attention_backward(qkv, pk, pv, g, ctx.scale, ctx.heads)
-        return dqkv, dpk, dpv, None, None
 
 
 def fused_prefix_attention(
@@ -221,4 +171,4 @@ def fused_prefix_attention(
     """Prefix-KV self-attention straight off the packed qkv tensor:
     ``(B, S, 3D), (B, P, D), (B, P, D) -> (B, S, D)``, differentiable in all
     three inputs."""
-    return _FusedPrefixAttention.apply(qkv, pk, pv, float(scale), int(heads))
+    return _packed_attention("prefix", qkv, scale, heads, pk, pv)

@@ -15,9 +15,10 @@ resolved to milliseconds without waiting once a few thousand have
 completed, and the rest when the spans are read, so nothing waits on the hot
 path), and two counters, inclusive of its children: ``syncs``, the
 synchronising CUDA operations run inside it, and ``launches``, the
-``(kind, shape)`` of each attention kernel launched inside it (the wrappers
-of ``ops/`` call :meth:`Tracer.launch`; the period keeps each launch once,
-with its innermost span).
+``(kind, shape)`` of each attention kernel launched inside it (the packed,
+prefix and masked wrappers of ``ops/`` call :meth:`Tracer.launch` through
+``ops.attention._launched``; the period keeps each launch once, with its
+innermost span).
 
 Recording is on while the run's config sets ``profile: true`` (the trainer
 calls :meth:`Tracer.begin` and :meth:`Tracer.end`) or while a

@@ -18,6 +18,8 @@ from jax.experimental import pallas as pl
 torch.set_num_threads(1)
 
 from libcontinual_tpu_torch.ops import attention as T  # noqa: E402
+from libcontinual_tpu_torch.ops import masked_attention as MT  # noqa: E402
+from libcontinual_tpu_torch.ops import prefix_attention as PT  # noqa: E402
 
 A = importlib.import_module("libcontinual_tpu.ops.attention")
 
@@ -130,15 +132,64 @@ def test_plain_versions_match_pallas_bodies_bf16_long(shape):
     np.testing.assert_allclose(dqkv_t.float().numpy(), dqkv_p, atol=BF16_TOL, rtol=0)
 
 
-def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    qkv, g = _inputs(1, 5, 2, 16)
+#: the packed-qkv op's modes: its kernel kinds' stem in ``LAUNCHES``, the
+#: module of the mode's functions and their stem
+MODES = {"qkv": ("qkv", T, "qkv_attention"), "prefix": ("pqkv", PT, "prefix_attention"),
+         "masked": ("mqkv", MT, "masked_attention")}
+
+
+def _mode_inputs(mode, b, s, h, hd, dtype=torch.float32, device="cpu", p=3, seed=0):
+    """qkv, the mode's extra inputs (the prefix's pk and pv, or a causal
+    mask) and an output gradient g."""
+    rng = np.random.RandomState(seed)
+    d = h * hd
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device, dtype)
+
+    qkv, g = rand(b, s, 3 * d), rand(b, s, d)
+    if mode == "prefix":
+        extra = [rand(b, p, d), rand(b, p, d)]
+    elif mode == "masked":
+        extra = [torch.triu(torch.full((s, s), -1e30), diagonal=1).to(device)]
+    else:
+        extra = []
+    return qkv, extra, g
+
+
+def _fns(mode):
+    """The mode's fused entry and its four functions: (entry, kernel forward,
+    kernel backward, plain forward, plain backward)."""
+    _, mod, stem = MODES[mode]
+    entry = {"qkv": T.fused_qkv_attention, "prefix": PT.fused_prefix_attention,
+             "masked": MT.fused_masked_qkv_attention}[mode]
+    return (entry, *(getattr(mod, stem + tail) for tail in ("_cuda", "_bwd_cuda", "_plain",
+                                                             "_bwd_plain")))
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch(mode):
+    """Through the mode's fused entry, a CPU tensor runs the plain forward
+    and backward (every gradient equal to the plain backward's: qkv's, and
+    the prefix's pk and pv), and no kernel is counted."""
+    entry, _, _, _, bwd_plain = _fns(mode)
+    qkv, extra, g = _mode_inputs(mode, 1, 5, 2, 16)
     T.reset_launches()
-    x = torch.from_numpy(qkv).requires_grad_()
-    T.fused_qkv_attention(x, 0.25, 2).backward(torch.from_numpy(g))
-    assert {"qkv_fwd", "qkv_bwd"} <= set(T.LAUNCHES)
+    leaves = [qkv] + (extra if mode == "prefix" else [])  # a mask gets no gradient
+    for t in leaves:
+        t.requires_grad_()
+    entry(qkv, *extra, 0.25, 2).backward(g)
+    kind = MODES[mode][0]
+    assert {kind + "_fwd", kind + "_bwd"} <= set(T.LAUNCHES)
     assert T.LAUNCHES == dict.fromkeys(T.LAUNCHES, 0)
-    ref = T.qkv_attention_bwd_plain(torch.from_numpy(qkv), torch.from_numpy(g), 0.25, 2)
-    assert torch.equal(x.grad, ref)
+    ref = _as_tuple(bwd_plain(*(t.detach() for t in (qkv, *extra)), g, 0.25, 2))
+    assert len(ref) == len(leaves)
+    for t, r in zip(leaves, ref):
+        assert torch.equal(t.grad, r)
 
 
 @pytest.mark.parametrize("family", ["qkv", "prefix", "masked"])
@@ -146,24 +197,12 @@ def test_cpu_tensors_count_no_onepass_launch(family):
     """A bf16 forward at a shape the one-pass kernel takes on the card (hd 64,
     20 keys) runs the plain version on a CPU tensor: the ``*_fwd_onepass``
     counter is there and stays 0, like every other."""
-    from libcontinual_tpu_torch.ops import masked_attention as MT
-    from libcontinual_tpu_torch.ops import prefix_attention as PT
-
-    qkv, _ = _inputs(1, 20, 1, 64)
-    x = torch.from_numpy(qkv).bfloat16()
-    mod = {"qkv": T, "prefix": PT, "masked": MT}[family]
-    mod.reset_launches()
-    if family == "qkv":
-        out = T.qkv_attention_forward(x, 0.125, 1)
-    elif family == "prefix":
-        pk = torch.zeros(1, 3, 64, dtype=torch.bfloat16)
-        out = PT.prefix_attention_forward(x, pk, pk, 0.125, 1)
-    else:
-        out = MT.masked_attention_forward(x, torch.zeros(20, 20), 0.125, 1)
+    qkv, extra, _ = _mode_inputs(family, 1, 20, 1, 64, torch.bfloat16)
+    T.reset_launches()
+    out = T._routed(family, False, qkv, *extra, 0.125, 1)
     assert out.shape == (1, 20, 64) and out.dtype == torch.bfloat16
-    key = {"qkv": "qkv_fwd_onepass", "prefix": "pqkv_fwd_onepass", "masked": "mqkv_fwd_onepass"}
-    assert key[family] in mod.LAUNCHES
-    assert mod.LAUNCHES == dict.fromkeys(mod.LAUNCHES, 0)
+    assert MODES[family][0] + "_fwd_onepass" in T.LAUNCHES
+    assert T.LAUNCHES == dict.fromkeys(T.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize("family", ["qkv", "prefix", "masked"])
@@ -171,35 +210,67 @@ def test_cpu_backward_counts_no_onepass_launch(family):
     """A bf16 backward at a shape the one-pass backward takes on the card (hd
     64, 20 keys) runs the plain version on a CPU tensor: the
     ``*_bwd_onepass`` counter is there and stays 0, like every other."""
-    from libcontinual_tpu_torch.ops import masked_attention as MT
-    from libcontinual_tpu_torch.ops import prefix_attention as PT
-
-    qkv, g = _inputs(1, 20, 1, 64)
-    x, go = torch.from_numpy(qkv).bfloat16(), torch.from_numpy(g).bfloat16()
-    mod = {"qkv": T, "prefix": PT, "masked": MT}[family]
-    mod.reset_launches()
-    if family == "qkv":
-        grads = [T.qkv_attention_backward(x, go, 0.125, 1)]
-    elif family == "prefix":
-        pk = torch.zeros(1, 3, 64, dtype=torch.bfloat16)
-        grads = list(PT.prefix_attention_backward(x, pk, pk, go, 0.125, 1))
-    else:
-        grads = [MT.masked_attention_backward(x, torch.zeros(20, 20), go, 0.125, 1)]
+    qkv, extra, go = _mode_inputs(family, 1, 20, 1, 64, torch.bfloat16)
+    T.reset_launches()
+    grads = _as_tuple(T._routed(family, True, qkv, *extra, go, 0.125, 1))
     assert grads[0].shape == (1, 20, 192) and all(d.dtype == torch.bfloat16 for d in grads)
-    key = {"qkv": "qkv_bwd_onepass", "prefix": "pqkv_bwd_onepass", "masked": "mqkv_bwd_onepass"}
-    assert key[family] in mod.LAUNCHES
-    assert mod.LAUNCHES == dict.fromkeys(mod.LAUNCHES, 0)
+    assert MODES[family][0] + "_bwd_onepass" in T.LAUNCHES
+    assert T.LAUNCHES == dict.fromkeys(T.LAUNCHES, 0)
 
 
-def test_other_devices_raise():
-    qkv = torch.zeros(1, 4, 48, device="meta")
+@pytest.mark.parametrize("mode", list(MODES))
+def test_other_devices_raise(mode):
+    qkv, extra, g = _mode_inputs(mode, 1, 4, 2, 16, device="meta")
+    entry = _fns(mode)[0]
     with pytest.raises(ValueError, match="no implementation"):
-        T.qkv_attention_forward(qkv, 0.25, 3)
+        entry(qkv, *extra, 0.25, 2)
+    with pytest.raises(ValueError, match="no implementation"):
+        T._routed(mode, True, qkv, *extra, g, 0.25, 2)
 
 
-def test_cuda_wrappers_refuse_cpu_tensors():
-    qkv, g = _inputs(1, 4, 2, 16)
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cuda_wrappers_refuse_cpu_tensors(mode):
+    _, fwd_cuda, bwd_cuda, _, _ = _fns(mode)
+    qkv, extra, g = _mode_inputs(mode, 1, 4, 2, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        T.qkv_attention_cuda(torch.from_numpy(qkv), 0.25, 2)
+        fwd_cuda(qkv, *extra, 0.25, 2)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        T.qkv_attention_bwd_cuda(torch.from_numpy(qkv), torch.from_numpy(g), 0.25, 2)
+        bwd_cuda(qkv, *extra, g, 0.25, 2)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_cuda_route_calls_each_kernel_wrapper_through_its_module(mode, monkeypatch):
+    """The contract the benchmark's per-layer metric rests on
+    (``bench_port/trace.py:record_launches`` replaces the six ``*_cuda``
+    names on their modules and reads their positional arguments): on the
+    CUDA route, the one autograd node calls the mode's two kernel wrappers
+    through their module, once per direction, with qkv first, the prefix's
+    pk second and heads last; the results are the wrappers' own. Here each
+    wrapper is replaced by a recorder that runs the mode's plain version."""
+    entry, _, _, fwd_plain, bwd_plain = _fns(mode)
+    kind, mod, stem = MODES[mode]
+    calls = []
+
+    def recorder(kname, plain):
+        def call(*args):  # positional only, as record_launches' wrappers take them
+            qkv, heads = args[0], args[-1]
+            p = (args[1].shape[1],) if kname.startswith("pqkv") else ()
+            calls.append((kname, (qkv.shape[0], qkv.shape[1], *p, qkv.shape[2] // 3, int(heads))))
+            return plain(*args)
+        return call
+
+    monkeypatch.setattr(mod, stem + "_cuda", recorder(kind + "_fwd", fwd_plain))
+    monkeypatch.setattr(mod, stem + "_bwd_cuda", recorder(kind + "_bwd", bwd_plain))
+    monkeypatch.setattr(T, "_route", lambda t, name: "cuda")
+    qkv, extra, g = _mode_inputs(mode, 2, 5, 2, 16)
+    leaves = [qkv] + (extra if mode == "prefix" else [])
+    for t in leaves:
+        t.requires_grad_()
+    out = entry(qkv, *extra, 0.25, 2)
+    out.backward(g)
+    shape = (2, 5, 3, 32, 2) if mode == "prefix" else (2, 5, 32, 2)
+    assert calls == [(kind + "_fwd", shape), (kind + "_bwd", shape)]
+    ins = [t.detach() for t in (qkv, *extra)]
+    assert torch.equal(out, fwd_plain(*ins, 0.25, 2))
+    for t, r in zip(leaves, _as_tuple(bwd_plain(*ins, g, 0.25, 2))):
+        assert torch.equal(t.grad, r)

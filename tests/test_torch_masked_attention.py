@@ -159,31 +159,3 @@ def test_causal_mask_hides_the_future_exactly():
     torch.testing.assert_close(out[0, 0], x[0, 0, 64:].detach(), atol=0, rtol=0)
     out[0, 2].sum().backward()
     assert torch.count_nonzero(x.grad[0, 3:]) == 0
-
-
-def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    qkv, mask, g = _inputs(1, 5, 2, 16, "causal")
-    T.reset_launches()
-    x = torch.from_numpy(qkv).requires_grad_()
-    T.fused_masked_qkv_attention(x, torch.from_numpy(mask), 0.25, 2).backward(torch.from_numpy(g))
-    assert T.LAUNCHES == {"mqkv_fwd": 0, "mqkv_bwd": 0, "mqkv_fwd_onepass": 0,
-                          "mqkv_bwd_onepass": 0}
-    ref = T.masked_attention_bwd_plain(*(torch.from_numpy(a) for a in (qkv, mask, g)), 0.25, 2)
-    assert torch.equal(x.grad, ref)
-
-
-def test_other_devices_raise():
-    qkv = torch.zeros(1, 4, 48, device="meta")
-    mask = torch.zeros(4, 4, device="meta")
-    with pytest.raises(ValueError, match="no implementation"):
-        T.masked_attention_forward(qkv, mask, 0.25, 2)
-    with pytest.raises(ValueError, match="no implementation"):
-        T.masked_attention_backward(qkv, mask, torch.zeros(1, 4, 16, device="meta"), 0.25, 2)
-
-
-def test_cuda_wrappers_refuse_cpu_tensors():
-    qkv, mask, g = (torch.from_numpy(a) for a in _inputs(1, 4, 2, 16, "causal"))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        T.masked_attention_cuda(qkv, mask, 0.25, 2)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        T.masked_attention_bwd_cuda(qkv, mask, g, 0.25, 2)

@@ -155,32 +155,3 @@ def test_broadcast_prefix_gradient_sums_over_the_batch():
         base_v.detach()[None].repeat(b, 1, 1), torch.from_numpy(g), 0.25, h)
     torch.testing.assert_close(base_k.grad, dpk.sum(0), atol=F32_TOL, rtol=0)
     torch.testing.assert_close(base_v.grad, dpv.sum(0), atol=F32_TOL, rtol=0)
-
-
-def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    qkv, pk, pv, g = _inputs(1, 5, 2, 2, 16)
-    T.reset_launches()
-    ins = [torch.from_numpy(t).requires_grad_() for t in (qkv, pk, pv)]
-    T.fused_prefix_attention(*ins, 0.25, 2).backward(torch.from_numpy(g))
-    assert T.LAUNCHES == {"pqkv_fwd": 0, "pqkv_bwd": 0, "pqkv_fwd_onepass": 0,
-                          "pqkv_bwd_onepass": 0}
-    ref = T.prefix_attention_bwd_plain(*(torch.from_numpy(t) for t in (qkv, pk, pv, g)), 0.25, 2)
-    for t, r in zip(ins, ref):
-        assert torch.equal(t.grad, r)
-
-
-def test_other_devices_raise():
-    qkv = torch.zeros(1, 4, 48, device="meta")
-    pk = torch.zeros(1, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="no implementation"):
-        T.prefix_attention_forward(qkv, pk, pk, 0.25, 2)
-    with pytest.raises(ValueError, match="no implementation"):
-        T.prefix_attention_backward(qkv, pk, pk, torch.zeros(1, 4, 16, device="meta"), 0.25, 2)
-
-
-def test_cuda_wrappers_refuse_cpu_tensors():
-    qkv, pk, pv, g = (torch.from_numpy(t) for t in _inputs(1, 4, 2, 2, 16))
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        T.prefix_attention_cuda(qkv, pk, pv, 0.25, 2)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        T.prefix_attention_bwd_cuda(qkv, pk, pv, g, 0.25, 2)
