@@ -7,8 +7,8 @@ Needs one CUDA card and ``nvcc``; it raises without them. Phases, each of
 which raises on failure:
 
   1. environment: torch, CUDA, the card's name and power limit;
-  2. build: the kernel libraries ``libcontinual_tpu_torch/ops/csrc/attention.cu``
-     and ``conv.cu`` (one ``nvcc`` each, started together), with their ptxas
+  2. build: the kernel libraries ``libcontinual_tpu_torch/ops/csrc/attention.cu``,
+     ``conv.cu`` and ``layer_norm.cu`` (one ``nvcc`` each, started together), with their ptxas
      reports, and the count of HMMA instructions (tensor-core products) in
      the SASS of each bf16 instantiation of the packed forward and of both
      backward kernels, of the generic forward (6 modes x 4 head dims), of
@@ -99,7 +99,17 @@ which raises on failure:
      text and one long shape, and of each variant at the tool's shape
      (``mmonly`` beside its function as two cuBLAS products); and
      the port's two tools, ``bench_attention`` and ``exp_flash_kernel``, at
-     their defaults, whose launches are the variants' counts.
+     their defaults, whose launches are the variants' counts;
+  7. LayerNorm (``layer_norm.cu``, which replaces no TPU kernel): the
+     forward and backward kernels (dx, dw and db) against the plain versions
+     at every (D, dtypes) the slices launched them at and at the main path's
+     shapes (L2P's B 128 x S 197 and 222 at D 768, bf16 with bf16
+     parameters; the final norm into f32; the CLIP text tower's 100 x 77 at
+     D 512 into f32), the backward twice at L2P's shape, bitwise equal; and
+     their times at L2P's prompted pass (B 128, S 222, D 768, bf16) beside
+     the bound (bytes over 3.35 TB/s), ``F.layer_norm`` on bf16 (the
+     yardstick; the port never calls it), the plain versions and the port's
+     old f32 composition.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -254,6 +264,23 @@ SOURCES.update({
 # the variant timed for each variant entry of the kernels line
 G_VARIANT_OF = {"attn_fwd_v2": "v2", "attn_fwd_fast": "fast", "attn_fwd_mmonly": "mmonly",
                 "attn_fwd_qblock": "qblock", "attn_fwd_flash": "flash"}
+
+# the LayerNorm kernels, which replace no TPU kernel
+LN_SOURCE = "libcontinual_tpu_torch/ops/csrc/layer_norm.cu"
+LN_REPLACES = ("no TPU kernel: the JAX package leaves LayerNorm to XLA, which fuses the f32 "
+               "casts around flax's LayerNorm; replaces the port's upcast, f32 F.layer_norm and "
+               "downcast launches (and their backward)")
+# (leading shape, D, x dtype, output dtype, parameter dtype, eps): L2P's query
+# and prompted passes (bf16, the frozen ViT's bf16 parameters, block eps
+# 1e-5), its final norm into f32 at 1e-6, the CLIP text tower's ln_final
+# (f32 parameters, into f32); the first two rows' shape is timed
+_BF, _F32 = torch.bfloat16, torch.float32
+L_MAIN = [((128, 197), 768, _BF, _BF, _BF, 1e-5), ((128, 222), 768, _BF, _BF, _BF, 1e-5),
+          ((128, 222), 768, _BF, _F32, _BF, 1e-6), ((100, 77), 512, _BF, _F32, _F32, 1e-5)]
+L_TIMED = L_MAIN[1]
+# dw and db: f32 sums over every row in another order, relative to their
+# largest magnitude; two bf16 ulps in bf16 parameters
+LN_PARAM_TOL = {_F32: 1e-4, _BF: 1.6e-2}
 
 # H100 SXM: HBM bandwidth and dense bf16 tensor-core peak (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -499,23 +526,37 @@ def _conv_module():
     return conv
 
 
+def _ln_module():
+    from libcontinual_tpu_torch.ops import layer_norm
+
+    return layer_norm
+
+
 def _reset_launches() -> None:
-    """Zeroes the two launch records: every attention kernel's and the conv
-    kernels'."""
+    """Zeroes the three launch records: every attention kernel's, the conv
+    kernels' and the LayerNorm kernels'."""
     _attention_modules()[0].reset_launches()
     _conv_module().reset_launches()
+    _ln_module().reset_launches()
 
 
 def _launches() -> dict:
-    return {**_attention_modules()[0].LAUNCHES, **_conv_module().LAUNCHES}
+    return {**_attention_modules()[0].LAUNCHES, **_conv_module().LAUNCHES,
+            **_ln_module().LAUNCHES}
 
 
 def _shape_key(kname, qkv, *rest):
     """(kernel, S, [P,] D, heads, dtype) of one attention launch, or (kernel,
     H, W, C, O, dtype) of one conv launch (x and the taps or the output
     gradient), or (kernel or variant, H, Sq, Skv, hd, dtype) of one generic
-    launch (q, k, ...): what a check at that shape covers, whatever the
-    batch."""
+    launch (q, k, ...), or (kernel, D, x's dtype, the output's or the output
+    gradient's, the parameters') of one LayerNorm launch (x, weight, bias,
+    eps, dtype or x, g, weight, ...): what a check at that shape covers,
+    whatever the batch."""
+    if kname.startswith("ln_"):
+        if kname == "ln_bwd":
+            return (kname, qkv.shape[-1], qkv.dtype, rest[0].dtype, rest[1].dtype)
+        return (kname, qkv.shape[-1], qkv.dtype, rest[3], rest[0].dtype)
     if kname.startswith(("attn", "variant")):
         return (kname, *qkv.shape[1:3], rest[0].shape[2], qkv.shape[3], qkv.dtype)
     if kname.startswith("conv"):
@@ -530,21 +571,22 @@ def _recorded_shapes(seen: set):
     """Within it, every launch of a kernel wrapper adds its ``_shape_key`` to
     ``seen``; the wrappers themselves run (and count) as before."""
     A, PA, MA = _attention_modules()
-    C = _conv_module()
+    C, LN = _conv_module(), _ln_module()
     wrapped = [(A, "qkv_attention_cuda", "qkv_fwd"), (A, "qkv_attention_bwd_cuda", "qkv_bwd"),
                (PA, "prefix_attention_cuda", "pqkv_fwd"),
                (PA, "prefix_attention_bwd_cuda", "pqkv_bwd"),
                (MA, "masked_attention_cuda", "mqkv_fwd"),
                (MA, "masked_attention_bwd_cuda", "mqkv_bwd"),
                (C, "conv3x3_cuda", "conv3x3_fwd"), (C, "conv3x3_dw_cuda", "conv3x3_dw"),
-               (A, "attention_cuda", "attn_fwd"), (A, "attention_variant_cuda", None)]
+               (A, "attention_cuda", "attn_fwd"), (A, "attention_variant_cuda", None),
+               (LN, "layer_norm_cuda", "ln_fwd"), (LN, "layer_norm_bwd_cuda", "ln_bwd")]
     saved = [getattr(mod, attr) for mod, attr, _ in wrapped]
 
     def recording(fn, kname):
-        def call(*args):
+        def call(*args, **kwargs):
             # a variant launch is keyed by its variant (its last argument)
             seen.add(_shape_key(kname or f"variant {args[-1]}", *args))
-            return fn(*args)
+            return fn(*args, **kwargs)
         return call
 
     for (mod, attr, kname), fn in zip(wrapped, saved):
@@ -587,6 +629,7 @@ def phase_build():
             onepass = re.search(r"attn_(fwd|bwd_dkdv)_kernelILi(\d)ELi(\d+)EE", chunk)
             conv = re.search(r"(conv3x3_\w+?_kernel)(?:I(f|13__nv_bfloat16)(?:Li(\d)E)?E)?", chunk)
             gen = re.search(r"gattn_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", chunk)
+            ln = re.search(r"(ln_\w+?_kernel)I(\w+?)EEv", chunk)
             if not (nreg and spill):
                 continue
             if gen:
@@ -604,6 +647,8 @@ def phase_build():
                 kind, typ, mt = conv.groups()
                 dtype = "" if typ is None else "f32" if typ == "f" else "bf16"
                 label = f"conv  {kind:25s} {dtype}{'' if mt in (None, '0') else f' MT {mt}'}"
+            elif ln:
+                label = f"ln    {ln.group(1)} <{ln.group(2)}>"
             else:
                 continue
             print(f"[build]   {label}: {nreg.group(1)} registers, {spill.group(1)} bytes spill stores")
@@ -2573,6 +2618,113 @@ def phase_conv_timing(dev, card):
     return out
 
 
+def _ln_inputs(lead, d, xdt, ydt, wdt, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(*lead, d, device=dev, generator=g) * 1.5 + 0.3).to(xdt)
+    w = (1.0 + 0.2 * torch.randn(d, device=dev, generator=g)).to(wdt)
+    b = (0.1 * torch.randn(d, device=dev, generator=g)).to(wdt)
+    go = torch.randn(*lead, d, device=dev, generator=g).to(ydt)
+    return x, w, b, go
+
+
+def _bf16_ulp(t):
+    """The spacing of bf16 values at each |t| (8 significant bits), no finer
+    than at |t| = 2^-9 (2^-16): nearer 0 the f32 cancellation in xhat * w + b,
+    a few f32 ulps of terms near 1, decides the rounding."""
+    mag = t.float().abs()
+    e = torch.where(mag > 0, torch.frexp(mag).exponent - 8, -16)
+    return torch.ldexp(torch.ones_like(mag), e.clamp(min=-16))
+
+
+def phase_layer_norm_checks(dev, errs, checked, seen):
+    """The LayerNorm kernels against their plain versions: y within one bf16
+    ulp elementwise (an f32 y within TOL), dx, dw and db against the
+    backward's equations in PyTorch, at the main path's shapes (``L_MAIN``)
+    and at 3 x 41 rows for every (D, dtypes) the slices launched (``seen``);
+    the backward twice at ``L_TIMED``, bitwise equal. Adds each checked key
+    to ``checked``."""
+    LN = _ln_module()
+    keys = {k[1:] for k in seen if k[0] in ("ln_fwd", "ln_bwd")}
+    cases = L_MAIN + [((3, 41), d, xdt, ydt, wdt, 1e-5) for d, xdt, ydt, wdt in sorted(keys, key=str)]
+    for i, (lead, d, xdt, ydt, wdt, eps) in enumerate(cases):
+        x, w, b, go = _ln_inputs(lead, d, xdt, ydt, wdt, dev, seed=500 + i)
+        y, mean, rstd = LN.layer_norm_cuda(x, w, b, eps, ydt, stats=True)
+        dx, dw, db = LN.layer_norm_bwd_cuda(x, go, w, mean, rstd, params=True)
+        torch.cuda.synchronize()
+        ref = LN.layer_norm_plain(x, w, b, eps, ydt)
+        ref_dx, ref_dw, ref_db = LN.layer_norm_bwd_plain(x, go, w, eps)
+        ulps = float(((y.float() - ref.float()).abs() / _bf16_ulp(ref)).max())
+        got = {"y": _err(y, ref), "dx": _err(dx, ref_dx), "dw": _err(dw, ref_dw.to(wdt)),
+               "db": _err(db, ref_db.to(wdt))}
+        tol = {"y": TOL[ydt], "dx": TOL[xdt], "dw": LN_PARAM_TOL[wdt], "db": LN_PARAM_TOL[wdt]}
+        tag = (f"{'x'.join(map(str, lead))} rows, D {d}, x {str(xdt)[6:]} -> "
+               f"{str(ydt)[6:]}, parameters {str(wdt)[6:]}, eps {eps:g}")
+        print(f"[ln check] {tag}: y {ulps:.2f} bf16 ulps at most; max abs err (scaled) " +
+              ", ".join(f"{n} {a:.3e} ({r:.3e}, tolerance {tol[n]:.1e})"
+                        for n, (a, r) in got.items()))
+        _require((ydt != _BF or ulps <= 1.0) and all(r <= tol[n] for n, (_, r) in got.items())
+                 and (dx.dtype, dw.dtype, db.dtype) == (xdt, wdt, wdt),
+                 f"LayerNorm kernels disagree at {tag}")
+        checked.update({("ln_fwd", d, xdt, ydt, wdt), ("ln_bwd", d, xdt, ydt, wdt)})
+        if i < len(L_MAIN):
+            errs["ln_fwd"] = max(errs["ln_fwd"], got["y"][0])
+            errs["ln_bwd"] = max(errs["ln_bwd"], got["dx"][0])
+    lead, d, xdt, ydt, wdt, eps = L_TIMED
+    x, w, b, go = _ln_inputs(lead, d, xdt, ydt, wdt, dev, seed=599)
+    _, mean, rstd = LN.layer_norm_cuda(x, w, b, eps, ydt, stats=True)
+    for params in (False, True):
+        runs = [LN.layer_norm_bwd_cuda(x, go, w, mean, rstd, params=params) for _ in range(2)]
+        torch.cuda.synchronize()
+        _require(all(a is None or torch.equal(a, c) for a, c in zip(*runs)),
+                 f"the LayerNorm backward (params {params}) is not deterministic")
+    print(f"[ln check] the backward at {lead} x {d} twice, with and without dw and db: "
+          "bitwise equal")
+
+
+def _ln_bounds(rows, d):
+    """(forward, backward) bounds in bf16 with bf16 parameters: the forward
+    reads x and w, b and writes y, mean and rstd; the backward reads x, g, w,
+    mean and rstd and writes dx; each once."""
+    return (_bound(4 * rows * d + 4 * d + 8 * rows, 0),
+            _bound(6 * rows * d + 2 * d + 8 * rows, 0))
+
+
+def phase_layer_norm_timing(dev, card):
+    """The LayerNorm kernels at ``L_TIMED`` (the forward saving its
+    statistics, the backward dx alone, as L2P's frozen ViT asks) beside the
+    plain versions, ``F.layer_norm`` on bf16 (its native bf16 kernel and
+    ``aten.native_layer_norm_backward``; the port never calls them) and the
+    port's old composition (f32 casts around ``F.layer_norm``, forward and
+    autograd backward)."""
+    LN = _ln_module()
+    lead, d, xdt, ydt, wdt, eps = L_TIMED
+    x, w, b, go = _ln_inputs(lead, d, xdt, ydt, wdt, dev, seed=600)
+    rows = x.numel() // d
+    _, mean, rstd = LN.layer_norm_cuda(x, w, b, eps, ydt, stats=True)
+    _, n_mean, n_rstd = torch.ops.aten.native_layer_norm(x, [d], w, b, eps)
+    xg = x.detach().requires_grad_()
+    old = LN.layer_norm_plain(xg, w, b, eps, ydt)
+    tag = f"B {lead[0]} S {lead[1]} D {d} bf16, bf16 parameters"
+    fwd = _time_pair(f"ln_fwd at {tag}", {
+        "plain": lambda: LN.layer_norm_plain(x, w, b, eps, ydt),
+        "library": lambda: F.layer_norm(x, (d,), w, b, eps),
+        "kernel": lambda: LN.layer_norm_cuda(x, w, b, eps, ydt, stats=True)},
+        card, library="F.layer_norm bf16")
+    bwd = _time_pair(f"ln_bwd at {tag}", {
+        "plain": lambda: LN.layer_norm_bwd_plain(x, go, w, eps),
+        "library": lambda: torch.ops.aten.native_layer_norm_backward(
+            go, x, [d], n_mean, n_rstd, w, b, [True, False, False]),
+        "composition": lambda: torch.autograd.grad(old, xg, go, retain_graph=True),
+        "kernel": lambda: LN.layer_norm_bwd_cuda(x, go, w, mean, rstd)},
+        card, library="F.layer_norm bf16 backward")
+    bound_fwd, bound_bwd = _ln_bounds(rows, d)
+    print(f"[bound] LayerNorm at {tag}: forward {bound_fwd[0] * 1e3:.1f} us, backward "
+          f"{bound_bwd[0] * 1e3:.1f} us (bytes); the old composition forward "
+          f"{fwd['plain']:.4f} ms, backward {bwd['composition']:.4f} ms [{card}]")
+    return {"ln_fwd": (dict(fwd, composition=fwd["plain"]), bound_fwd),
+            "ln_bwd": (bwd, bound_bwd)}
+
+
 def _step_setup(dev, name):
     from libcontinual_tpu_torch.config import Config
     from libcontinual_tpu_torch.registry import METHODS
@@ -2749,7 +2901,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    errs = dict.fromkeys(SOURCE_LINES, 0.0)
+    errs = dict.fromkeys([*SOURCE_LINES, "ln_fwd", "ln_bwd"], 0.0)
     checked, seen = set(), set()
     phase_checks(dev, errs, checked)
     phase_prefix_checks(dev, errs, checked)
@@ -2805,6 +2957,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches[TOOLS_PATH] = phase_generic_tools(seen)
     t_generic += time.perf_counter() - t_gen
+    phase_layer_norm_checks(dev, errs, checked, seen)
     # every shape the slices gave a kernel was checked against the plain version
     print(f"[slices] kernel shapes launched (kernel, S, [P,] D, heads, dtype; or kernel, H, W, "
           f"C, O, dtype): {sorted(map(str, seen))}")
@@ -2817,6 +2970,7 @@ def main() -> int:
     t_gen = time.perf_counter()
     times.update(phase_generic_timing(dev, card))
     t_generic += time.perf_counter() - t_gen
+    times.update(phase_layer_norm_timing(dev, card))
     print(f"[env] the generic attention phases (checks, capture, path, tools, timing) in "
           f"{t_generic:.1f} s")
     phase_step_timing(dev, card, "L2P", profile=True)
@@ -2869,6 +3023,17 @@ def main() -> int:
         elif kname.startswith("mqkv"):
             entry["shape"] = "B {} S {} D {} H {} bf16 causal".format(*M_TIMED)
         kernels.append(entry)
+    for kname in ("ln_fwd", "ln_bwd"):
+        best, (bound_ms, by) = times[kname]
+        lead, d = L_TIMED[:2]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": LN_SOURCE, "replaces": None,
+            "note": LN_REPLACES, "launches": launches["L2P"][kname], "main_path": "L2P",
+            "launches_by_path": {p: n.get(kname, 0) for p, n in launches.items()},
+            "max_abs_err": errs[kname], "ms": best["kernel"], "plain_ms": best["plain"],
+            "composition_ms": best["composition"], "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3, "bound_by": by, "library_ms": best["library"],
+            "library": "F.layer_norm on bf16", "shape": f"B {lead[0]} S {lead[1]} D {d} bf16"})
     for k in kernels:
         _require(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(card)

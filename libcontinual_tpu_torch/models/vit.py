@@ -17,8 +17,10 @@ dtype (bf16 on the card), LayerNorm statistics and arithmetic in f32 with
 the result rounded to the compute dtype, the MLP's GELU in its tanh form at
 bf16 and exact erf at f32, and the final norm in f32. The linear
 projections and the patch-embed convolution are ``torch.nn.functional``
-calls, as the JAX package leaves them to XLA; attention is the packed-qkv
-kernel of :mod:`libcontinual_tpu_torch.ops.attention`, in a block with a
+calls, as the JAX package leaves them to XLA; LayerNorm is the op of
+:mod:`libcontinual_tpu_torch.ops.layer_norm` (on the card one kernel that
+reads and writes the compute dtype, where XLA fuses the casts); attention
+is the packed-qkv kernel of :mod:`libcontinual_tpu_torch.ops.attention`, in a block with a
 prefix the prefix-KV kernel of :mod:`libcontinual_tpu_torch.ops.prefix_attention`,
 and with a 2-D mask the masked kernel of
 :mod:`libcontinual_tpu_torch.ops.masked_attention`.
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from libcontinual_tpu_torch.ops.attention import fused_qkv_attention
+from libcontinual_tpu_torch.ops.layer_norm import layer_norm as layer_norm_op
 from libcontinual_tpu_torch.ops.masked_attention import fused_masked_qkv_attention
 from libcontinual_tpu_torch.ops.prefix_attention import fused_prefix_attention
 from libcontinual_tpu_torch.registry import BACKBONES
@@ -70,8 +73,7 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """flax ``LayerNorm(dtype=...)``: computed in f32, result in ``dtype``."""
-    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps)
-    return y.to(dtype)
+    return layer_norm_op(x, ln.weight, ln.bias, ln.eps, dtype)
 
 
 class MLP(nn.Module):

@@ -3,7 +3,9 @@
 Each source ``csrc/<name>.cu`` of :data:`LIBRARIES` is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``: ``attention.cu`` (the packed-qkv, prefix and masked attention
-kernels, and the generic attention forward) and ``conv.cu`` (the 3x3 convolution and its weight gradient). A
+kernels, and the generic attention forward), ``conv.cu`` (the 3x3 convolution
+and its weight gradient) and ``layer_norm.cu`` (LayerNorm, forward and
+backward). A
 library is built at its first use (never at import), into
 ``build/libcontinual_tpu_torch/`` under the repository root, and its file
 name carries a hash of the source, of every shared header in ``csrc/``
@@ -33,7 +35,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-LIBRARIES = ("attention", "conv")
+LIBRARIES = ("attention", "conv", "layer_norm")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: argument types of every function each library exports; all return an int
@@ -54,6 +56,11 @@ SIGNATURES = {
         "lct_conv3x3_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "lct_conv3x3_dw_slices": [_I, _I, _I, _I, _I],
         "lct_conv3x3_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "layer_norm": {
+        "lct_ln_bwd_parts": [_I],
+        "lct_ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "lct_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

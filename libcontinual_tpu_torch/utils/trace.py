@@ -15,10 +15,10 @@ resolved to milliseconds without waiting once a few thousand have
 completed, and the rest when the spans are read, so nothing waits on the hot
 path), and two counters, inclusive of its children: ``syncs``, the
 synchronising CUDA operations run inside it, and ``launches``, the
-``(kind, shape)`` of each attention kernel launched inside it (the packed,
-prefix and masked wrappers of ``ops/`` call :meth:`Tracer.launch` through
-``ops.attention._launched``; the period keeps each launch once, with its
-innermost span).
+``(kind, shape)`` of each kernel launched inside it (the packed, prefix and
+masked attention wrappers of ``ops/`` call :meth:`Tracer.launch` through
+``ops.attention._launched``, the LayerNorm wrappers of ``ops/layer_norm.py``
+directly; the period keeps each launch once, with its innermost span).
 
 Recording is on while the run's config sets ``profile: true`` (the trainer
 calls :meth:`Tracer.begin` and :meth:`Tracer.end`) or while a
@@ -309,8 +309,10 @@ class Tracer:
             self._end_period()
 
     def launch(self, kind: str, shape: Tuple[int, ...]) -> None:
-        """An attention kernel launch: ``(kind, shape)`` of the innermost open
-        span (and so of its parents)."""
+        """A kernel launch of ``ops/``: ``(kind, shape)`` of the innermost open
+        span (and so of its parents). The packed, prefix and masked attention
+        wrappers record ``(B, S, D, heads)`` or ``(B, S, P, D, heads)``, the
+        LayerNorm wrappers (``ln_fwd``, ``ln_bwd``) ``(rows, D)``."""
         if self._stack:
             self._period.launches.append((self._stack[-1].id, kind, shape))
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from libcontinual_tpu_torch.ops import attention as T
+from libcontinual_tpu_torch.ops import layer_norm as LN
 from libcontinual_tpu_torch.ops import masked_attention as MT
 from libcontinual_tpu_torch.ops import prefix_attention as PT
 
@@ -575,6 +576,170 @@ def test_icarl_train_step_on_the_card(cuda):
     assert not torch.equal(after["backbone.bn_stem.running_mean"],
                            before["backbone.bn_stem.running_mean"])
     assert all(torch.equal(v, teacher[k]) for k, v in state.mvars["teacher"].state_dict().items())
+
+
+# ----------------------------------------------------------------- LayerNorm
+
+_BF, _F32 = torch.bfloat16, torch.float32
+#: (leading shape, D, x dtype, output dtype, parameter dtype, eps): L2P's query
+#: and prompted passes (the frozen bf16 ViT-B/16, block eps 1e-5; the final
+#: norm into f32 at 1e-6), the CLIP text tower's ln_final (f32 parameters,
+#: into f32), vit_tiny_test's D 64 in f32, and the kernels' edges: D 8, chunk
+#: counts that leave lanes idle (D 136, 520), D 1024, f32 rows into bf16 and
+#: the largest D in both input dtypes
+LN_CASES = [((128, 197), 768, _BF, _BF, _BF, 1e-5), ((128, 222), 768, _BF, _BF, _BF, 1e-5),
+            ((128, 222), 768, _BF, _F32, _BF, 1e-6), ((100, 77), 512, _BF, _F32, _F32, 1e-5),
+            ((4, 17), 64, _F32, _F32, _F32, 1e-6), ((5, 3), 8, _BF, _BF, _BF, 1e-5),
+            ((9,), 136, _BF, _BF, _F32, 1e-5), ((3, 11), 520, _F32, _BF, _BF, 1e-6),
+            ((7, 5), 1024, _F32, _F32, _BF, 1e-5), ((3, 5), 4096, _BF, _BF, _F32, 1e-5),
+            ((3, 5), 4096, _F32, _F32, _F32, 1e-5)]
+#: dw and db, summed in f32 over every row in another order, relative to their
+#: largest magnitude; in bf16 parameters two bf16 ulps, as TOL
+LN_PARAM_TOL = {_F32: 1e-4, _BF: 1.6e-2}
+
+
+def _ln_inputs(cuda, case, seed=4):
+    lead, d, xdt, ydt, wdt, eps = case
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(*lead, d, device=cuda, generator=g) * 1.5 + 0.3).to(xdt)
+    w = (1.0 + 0.2 * torch.randn(d, device=cuda, generator=g)).to(wdt)
+    b = (0.1 * torch.randn(d, device=cuda, generator=g)).to(wdt)
+    go = torch.randn(*lead, d, device=cuda, generator=g).to(ydt)
+    return x, w, b, go, ydt, eps
+
+
+def _bf16_ulp(t):
+    """The spacing of bf16 values at each |t| (8 significant bits), no finer
+    than at |t| = 2^-9 (2^-16): nearer 0 the f32 cancellation in xhat * w + b,
+    a few f32 ulps of terms near 1, decides the rounding."""
+    mag = t.float().abs()
+    e = torch.where(mag > 0, torch.frexp(mag).exponent - 8, -16)
+    return torch.ldexp(torch.ones_like(mag), e.clamp(min=-16))
+
+
+@pytest.mark.parametrize("case", LN_CASES, ids=lambda c: "{}x{}-{}-{}-{}".format(
+    "x".join(map(str, c[0])), c[1], *(str(t)[6:] for t in c[2:5])))
+def test_layer_norm_kernels_match_plain(cuda, case):
+    """The forward within one bf16 ulp of the plain version elementwise (an
+    f32 output within TOL), the saved statistics, and dx, dw and db against
+    the backward's equations in PyTorch (``layer_norm_bwd_plain``)."""
+    x, w, b, go, ydt, eps = _ln_inputs(cuda, case)
+    y, mean, rstd = LN.layer_norm_cuda(x, w, b, eps, ydt, stats=True)
+    dx, dw, db = LN.layer_norm_bwd_cuda(x, go, w, mean, rstd, params=True)
+    torch.cuda.synchronize()
+    ref = LN.layer_norm_plain(x, w, b, eps, ydt)
+    assert y.dtype == ydt and y.shape == x.shape
+    if ydt == _BF:
+        assert bool(((y.float() - ref.float()).abs() <= _bf16_ulp(ref)).all())
+    else:
+        assert _err(y, ref) <= TOL[_F32]
+    ref_mean, ref_rstd = LN.layer_norm_stats_plain(x, eps)
+    assert _err(mean, ref_mean) <= TOL[_F32] and _err(rstd, ref_rstd) <= TOL[_F32]
+    ref_dx, ref_dw, ref_db = LN.layer_norm_bwd_plain(x, go, w, eps)
+    assert dx.dtype == x.dtype and _err(dx, ref_dx) <= TOL[x.dtype]
+    for got, want in ((dw, ref_dw), (db, ref_db)):
+        assert got.dtype == w.dtype
+        assert _err(got, want.to(w.dtype)) <= LN_PARAM_TOL[w.dtype]
+
+
+@pytest.mark.parametrize("params", [False, True], ids=["dx", "dx-dw-db"])
+def test_layer_norm_backward_is_deterministic(cuda, params):
+    x, w, b, go, ydt, eps = _ln_inputs(cuda, LN_CASES[1])
+    _, mean, rstd = LN.layer_norm_cuda(x, w, b, eps, ydt, stats=True)
+    first = LN.layer_norm_bwd_cuda(x, go, w, mean, rstd, params=params)
+    second = LN.layer_norm_bwd_cuda(x, go, w, mean, rstd, params=params)
+    torch.cuda.synchronize()
+    assert all((a is None and c is None) or torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_layer_norm_autograd_matches_the_composition_and_saves_nothing_without_grad(cuda):
+    """Through the op: under ``no_grad`` one forward launch and no graph;
+    with a graph, the gradients asked for (x's and the trainable
+    parameters'), each one launch, near autograd of the old composition."""
+    x, w, b, go, ydt, eps = _ln_inputs(cuda, LN_CASES[3])
+    LN.reset_launches()
+    with torch.no_grad():
+        y = LN.layer_norm(x.requires_grad_(), w, b, eps, ydt)
+    assert y.grad_fn is None and LN.LAUNCHES == {"ln_fwd": 1, "ln_bwd": 0}
+    w.requires_grad_()
+    y = LN.layer_norm(x, w, b, eps, ydt)
+    y.backward(go)
+    assert LN.LAUNCHES == {"ln_fwd": 2, "ln_bwd": 1} and b.grad is None
+    x2, w2 = x.detach().requires_grad_(), w.detach().requires_grad_()
+    LN.layer_norm_plain(x2, w2, b, eps, ydt).backward(go)
+    assert _err(x.grad, x2.grad) <= TOL[x.dtype]
+    assert _err(w.grad, w2.grad) <= LN_PARAM_TOL[w.dtype]
+
+
+def test_layer_norm_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    w, b = torch.ones(64, device=cuda), torch.zeros(64, device=cuda)
+    x = torch.zeros(4, 64, device=cuda)
+    fwd = LN.layer_norm_cuda
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        fwd(x.cpu(), w, b, 1e-5, _F32)
+    for d in (20, 4104):
+        with pytest.raises(ValueError, match=f"D {d} not supported"):
+            fwd(torch.zeros(4, d, device=cuda), torch.ones(d, device=cuda),
+                torch.zeros(d, device=cuda), 1e-5, _F32)
+    with pytest.raises(TypeError, match="dtype"):
+        fwd(x.half(), w, b, 1e-5, _F32)
+    with pytest.raises(TypeError, match="output dtype"):
+        fwd(x, w, b, 1e-5, torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(torch.zeros(64, 4, device=cuda).t(), w, b, 1e-5, _F32)
+    with pytest.raises(ValueError, match="does not match"):
+        fwd(x, torch.ones(32, device=cuda), b, 1e-5, _F32)
+    with pytest.raises(TypeError, match="bias dtype"):
+        fwd(x, w, b.bfloat16(), 1e-5, _F32)
+    with pytest.raises(ValueError, match="empty"):
+        fwd(torch.zeros(0, 64, device=cuda), w, b, 1e-5, _F32)
+    _, mean, rstd = fwd(x, w, b, 1e-5, _F32, stats=True)
+    with pytest.raises(ValueError, match="gradient"):
+        LN.layer_norm_bwd_cuda(x, torch.zeros(4, 32, device=cuda), w, mean, rstd)
+    with pytest.raises(ValueError, match="mean"):
+        LN.layer_norm_bwd_cuda(x, x, w, mean[:2], rstd)
+    with pytest.raises(ValueError, match="nothing to compute"):
+        LN.layer_norm_bwd_cuda(x, x, w, mean, rstd, dx=False)
+
+
+def test_l2p_step_runs_every_layer_norm_through_the_kernels(cuda):
+    """One L2P step on the full ViT-B/16 at batch 8: the frozen query pass
+    (24 block norms and the final one) and the prompted pass launch 50
+    forwards, and the prompted pass's backward 25 (the prompts enter before
+    block 0), by ``LAUNCHES`` and by the tracer's launch record."""
+    from collections import Counter
+
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.methods.prompt_methods import L2P
+    from libcontinual_tpu_torch.utils.trace import TRACER
+
+    cfg = Config(overrides={
+        "dataset": "synthetic", "data_root": "", "image_size": 32, "task_num": 10,
+        "init_cls_num": 10, "inc_cls_num": 10, "batch_size": 8, "dtype": "bfloat16",
+        "backbone": {"name": "ViTZoo", "kwargs": {}},
+        "classifier": {"name": "L2P", "kwargs": {
+            "num_class": 100, "feat_dim": 768, "init_cls_num": 10, "inc_cls_num": 10,
+            "task_num": 10, "prompt_length": 5, "pool_size": 10, "top_k": 5,
+            "pull_constraint_coeff": 0.1}},
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 0.001875}},
+    }).get_config_dict()
+    method = L2P(cfg, cuda)
+    state = method.init_state(0, (32, 32, 3))
+    batch = {"image": torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8, device=cuda),
+             "label": torch.randint(0, 10, (8,), device=cuda), "weight": torch.ones(8, device=cuda)}
+    LN.reset_launches()
+    period = TRACER.begin()
+    try:
+        state, out = method.train_step(state, batch, 1e-3)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.end()
+    assert torch.isfinite(out["loss"])
+    assert LN.LAUNCHES == {"ln_fwd": 50, "ln_bwd": 25}
+    shapes = Counter((kind, shape) for _, kind, shape in period.launches
+                     if kind.startswith("ln_"))
+    assert shapes == {("ln_fwd", (8 * 197, 768)): 25, ("ln_fwd", (8 * 222, 768)): 25,
+                      ("ln_bwd", (8 * 222, 768)): 25}
 
 
 # ------------------------------------------------ generic attention forward

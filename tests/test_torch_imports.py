@@ -29,6 +29,7 @@ MODULES = [
     "libcontinual_tpu_torch.ops.prefix_attention",
     "libcontinual_tpu_torch.ops.masked_attention",
     "libcontinual_tpu_torch.ops.conv",
+    "libcontinual_tpu_torch.ops.layer_norm",
     "libcontinual_tpu_torch.core.buffer",
     "libcontinual_tpu_torch.models.resnet",
     "libcontinual_tpu_torch.methods.icarl",
@@ -114,19 +115,20 @@ def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
 
 
 def test_real_sources_share_one_header():
-    """Two libraries: ``attention.cu`` on the shared headers, for the three
+    """Three libraries: ``attention.cu`` on the shared headers, for the three
     packed attention families (their one-pass forward and backward in headers
-    of their own) and the generic forward, and ``conv.cu`` on
-    the packed kernels' header alone (its cp.async, ldmatrix and mma.sync
-    primitives). Each exports every function its wrappers type, and nothing
-    is typed twice."""
+    of their own) and the generic forward, ``conv.cu`` on the packed kernels'
+    header alone (its cp.async, ldmatrix and mma.sync primitives), and
+    ``layer_norm.cu`` on none. Each exports every function its wrappers type,
+    and nothing is typed twice."""
     from libcontinual_tpu_torch.ops import _build
 
     assert sorted(os.listdir(_build.CSRC_DIR)) == ["attention.cu", "attention_kernels.cuh",
                                                    "conv.cu", "generic_attention.cuh",
+                                                   "layer_norm.cu",
                                                    "onepass_attention.cuh",
                                                    "onepass_attention_bwd.cuh"]
-    assert tuple(_build.SIGNATURES) == _build.LIBRARIES == ("attention", "conv")
+    assert tuple(_build.SIGNATURES) == _build.LIBRARIES == ("attention", "conv", "layer_norm")
     src = {}
     for name in _build.LIBRARIES:
         with open(os.path.join(_build.CSRC_DIR, name + ".cu")) as f:
@@ -144,6 +146,8 @@ def test_real_sources_share_one_header():
     assert {fn.split("_")[1] for fn in _build.SIGNATURES["attention"]} == {"qkv", "pqkv", "mqkv",
                                                                             "attn"}
     assert {fn.split("_")[1] for fn in _build.SIGNATURES["conv"]} == {"conv3x3"}
+    assert re.findall(r'#include "(\w+\.cuh)"', src["layer_norm"]) == []
+    assert {fn.split("_")[1] for fn in _build.SIGNATURES["layer_norm"]} == {"ln"}
 
 
 def test_cli_parses_overrides_without_yaml():
