@@ -28,7 +28,7 @@ draws to the port.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -266,7 +266,8 @@ def random_grayscale(gen: torch.Generator, images: torch.Tensor, p: float = 0.1)
                                         device=images.device) < p)
 
 
-def normalize(images: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
+def normalize(images: torch.Tensor, mean: Union[Sequence[float], torch.Tensor],
+              std: Union[Sequence[float], torch.Tensor]) -> torch.Tensor:
     mean_t = torch.as_tensor(mean, dtype=images.dtype, device=images.device)
     std_t = torch.as_tensor(std, dtype=images.dtype, device=images.device)
     return (images - mean_t) / std_t
@@ -283,10 +284,20 @@ class Pipeline:
 
     def __init__(self, steps: List[Tuple[str, Dict[str, Any]]]):
         self.steps = steps
+        #: each Normalize step's mean and std as tensors, by (step, device,
+        #: dtype): uploaded once, as a copy from the host waits for the device
+        self._stats: Dict[Tuple[int, torch.device, torch.dtype], Tuple[torch.Tensor, ...]] = {}
+
+    def _normalize_stats(self, i: int, kw: Dict[str, Any], x: torch.Tensor):
+        key = (i, x.device, x.dtype)
+        if key not in self._stats:
+            self._stats[key] = tuple(torch.as_tensor(kw[k], dtype=x.dtype, device=x.device)
+                                     for k in ("mean", "std"))
+        return self._stats[key]
 
     def __call__(self, gen: Optional[torch.Generator], images: torch.Tensor) -> torch.Tensor:
         x = images.float() / 255.0 if images.dtype == torch.uint8 else images
-        for name, kw in self.steps:
+        for i, (name, kw) in enumerate(self.steps):
             if name == "Resize":
                 x = resize(x, kw.get("size"))
             elif name == "CenterCrop":
@@ -317,7 +328,7 @@ class Pipeline:
                         tuple(kw.get("ratio", (0.75, 4.0 / 3.0))),
                     )
             elif name == "Normalize":
-                x = normalize(x, kw["mean"], kw["std"])
+                x = normalize(x, *self._normalize_stats(i, kw, x))
             elif name in ("ToTensor", "_convert_to_rgb", "_convert_image_to_rgb"):
                 pass  # storage is already RGB float NHWC here
             else:

@@ -19,6 +19,11 @@ Gradients are clipped to global norm 1.0. Only the head and the prompts
 train; the ViT is stored in the compute dtype without gradients, and its
 query pass runs under ``torch.no_grad()``. DualPrompt's and CODA's prompts
 are ``nn.ParameterDict``s keyed by the JAX package's names.
+
+Two spans of the tracer (``utils/trace.py``) mark the methods' own layers,
+in training inside ``step.forward``: ``step.query``, the frozen query pass,
+and ``step.prompts``, the prompt choice (L2P's pool step, DualPrompt's
+prefixes, CODA's composition); their backward runs in ``step.backward``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from libcontinual_tpu_torch.models import get_backbone
 from libcontinual_tpu_torch.models.heads import LinearHead
 from libcontinual_tpu_torch.registry import METHODS
 from libcontinual_tpu_torch.utils.seeding import make_generator
+from libcontinual_tpu_torch.utils.trace import TRACER
 
 
 class PromptViTMethod(Method):
@@ -97,8 +103,9 @@ class PromptViTMethod(Method):
         return {}
 
     def frozen_query(self, frozen: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        """First pass: CLS feature of the un-prompted frozen ViT, no graph."""
-        with torch.no_grad():
+        """First pass: CLS feature of the un-prompted frozen ViT, no graph
+        (span ``step.query``)."""
+        with TRACER.span("step.query"), torch.no_grad():
             return frozen(x)["features"]
 
     def cur_class_mask(self, state: TrainState) -> torch.Tensor:
@@ -175,9 +182,10 @@ class L2P(PromptViTMethod):
     def forward_logits(self, state, x, train=True, weight=None):
         frozen = state.mvars["frozen"]
         cls_feat = self.frozen_query(frozen, x)
-        prompts, reduce_sim = l2p_pool_forward(
-            state.params["prompt"], cls_feat, self.top_k, weight
-        )
+        with TRACER.span("step.prompts"):
+            prompts, reduce_sim = l2p_pool_forward(
+                state.params["prompt"], cls_feat, self.top_k, weight
+            )
         out = frozen(x, prepend_tokens=prompts, feature_mode="prompt_mean")
         return state.params["head"](out["features"]), reduce_sim
 
@@ -266,7 +274,9 @@ class DualPrompt(PrefixPromptMethod):
     def forward_logits(self, state, x, train=True, weight=None):
         frozen = state.mvars["frozen"]
         q = self.frozen_query(frozen, x)
-        prefix_kv, match_loss = self.prefixes(state.params["prompt"], q, state.task, train, weight)
+        with TRACER.span("step.prompts"):
+            prefix_kv, match_loss = self.prefixes(state.params["prompt"], q, state.task, train,
+                                                  weight)
         out = frozen(x, prefix_kv=prefix_kv)
         return state.params["head"](out["features"]), match_loss
 
@@ -382,14 +392,15 @@ class CodaPrompt(PrefixPromptMethod):
         frozen_m, valid_m, f = self._component_masks(state.task)
         prefix_kv = {}
         ortho = 0.0
-        for e in self.E_LAYERS:
-            prefix_kv[e], (K, A, P) = self._layer_prompt(
-                state.params["prompt"], e, q, frozen_m, valid_m, train
-            )
-            if train and self.mu > 0:
-                ortho = ortho + self.mu * (
-                    self._ortho(K, valid_m, f) + self._ortho(A, valid_m, f)
-                    + self._ortho(P, valid_m, f)
+        with TRACER.span("step.prompts"):
+            for e in self.E_LAYERS:
+                prefix_kv[e], (K, A, P) = self._layer_prompt(
+                    state.params["prompt"], e, q, frozen_m, valid_m, train
                 )
+                if train and self.mu > 0:
+                    ortho = ortho + self.mu * (
+                        self._ortho(K, valid_m, f) + self._ortho(A, valid_m, f)
+                        + self._ortho(P, valid_m, f)
+                    )
         out = frozen(x, prefix_kv=prefix_kv)
         return state.params["head"](out["features"]), ortho

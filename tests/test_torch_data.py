@@ -183,6 +183,21 @@ def test_normalize_matches_jax():
                                atol=TOL, rtol=0)
 
 
+def test_pipeline_normalize_uploads_its_statistics_once():
+    """A pipeline's Normalize makes its mean and std tensors at its first
+    call and reuses them (on the card each upload waits for the device);
+    its output is the plain ``normalize`` bit for bit."""
+    mean, std = [0.5071, 0.4866, 0.4409], [0.2675, 0.2565, 0.2761]
+    tp = ttr.Pipeline([("Normalize", {"mean": mean, "std": std})])
+    x = torch.from_numpy(_as_float(_images()))
+    first = tp(None, x)
+    stats = dict(tp._stats)
+    assert torch.equal(tp(None, x), first) and torch.equal(first, ttr.normalize(x, mean, std))
+    assert len(stats) == 1 and all(a is b for a, b in zip(stats.values(), tp._stats.values()))
+    tp(None, x.double())  # another dtype gets its own tensors
+    assert len(tp._stats) == 2
+
+
 @pytest.mark.parametrize("dataset", ["synthetic", "cifar100"])
 def test_vit_eval_pipeline_matches_jax(dataset):
     u8 = _images()

@@ -742,6 +742,83 @@ def test_l2p_step_runs_every_layer_norm_through_the_kernels(cuda):
                       ("ln_bwd", (8 * 222, 768)): 25}
 
 
+def _recorded_prompt_step(cuda, classifier, kwargs):
+    """One training step of a prompt method on the full ViT-B/16 at batch 128
+    (32 px images, resized to 224 by the ViT preset), after one unrecorded
+    step, inside a ``trainer.step`` span of a recording period: its rows."""
+    from libcontinual_tpu_torch.config import Config
+    from libcontinual_tpu_torch.methods.prompt_methods import L2P, DualPrompt
+    from libcontinual_tpu_torch.utils.trace import TRACER
+
+    cfg = Config(overrides={
+        "dataset": "synthetic", "data_root": "", "image_size": 224, "task_num": 10,
+        "init_cls_num": 10, "inc_cls_num": 10, "batch_size": 128, "dtype": "bfloat16",
+        "backbone": {"name": "ViTZoo", "kwargs": {}},
+        "classifier": {"name": classifier, "kwargs": {
+            "num_class": 100, "feat_dim": 768, "init_cls_num": 10, "inc_cls_num": 10,
+            "task_num": 10, **kwargs}},
+        "optimizer": {"name": "Adam", "kwargs": {"lr": 0.001}},
+    }).get_config_dict()
+    method = {"L2P": L2P, "DualPrompt": DualPrompt}[classifier](cfg, cuda)
+    state = method.init_state(0, (32, 32, 3))
+    batch = {"image": torch.randint(0, 256, (128, 32, 32, 3), dtype=torch.uint8, device=cuda),
+             "label": torch.randint(0, 10, (128,), device=cuda),
+             "weight": torch.ones(128, device=cuda)}
+    state, _ = method.train_step(state, batch, 1e-3)
+    torch.cuda.synchronize()
+    period = TRACER.begin()
+    try:
+        with TRACER.span("trainer.step"):
+            state, out = method.train_step(state, batch, 1e-3)
+        torch.cuda.synchronize()
+    finally:
+        TRACER.end()
+    assert torch.isfinite(out["loss"])
+    return period.rows()
+
+
+def _one(rows, name):
+    found = [r for r in rows if r["name"] == name]
+    assert len(found) == 1, (name, len(found))
+    return found[0]
+
+
+def test_dualprompt_step_launches_the_prefix_kernels_in_its_spans(cuda):
+    """One DualPrompt step at the published widths, batch 128: no host sync
+    in ``trainer.step``; the prefix kernels forward and backward in blocks
+    0-1 (3 prompt keys) and 2-4 (10), the qkv kernels in the other seven and
+    the query pass; ``step.query`` and ``step.prompts`` once each, inside
+    ``step.forward``."""
+    from collections import Counter
+
+    rows = _recorded_prompt_step(cuda, "DualPrompt", {
+        "e_prompt_length": 20, "g_prompt_length": 6, "pool_size": 10})
+    step = _one(rows, "trainer.step")
+    assert step["syncs"] == 0
+    attn = Counter((k, s) for k, s in step["launches"] if k.endswith(("qkv_fwd", "qkv_bwd")))
+    assert attn == {("pqkv_fwd", (128, 197, 3, 768, 12)): 2,
+                    ("pqkv_fwd", (128, 197, 10, 768, 12)): 3,
+                    ("pqkv_bwd", (128, 197, 3, 768, 12)): 2,
+                    ("pqkv_bwd", (128, 197, 10, 768, 12)): 3,
+                    ("qkv_fwd", (128, 197, 768, 12)): 12 + 7,
+                    ("qkv_bwd", (128, 197, 768, 12)): 7}
+    forward = _one(rows, "step.forward")
+    query, prompts = _one(rows, "step.query"), _one(rows, "step.prompts")
+    assert query["parent"] == prompts["parent"] == forward["id"]
+    assert not [k for k, _ in query["launches"] if k.startswith("pqkv")]
+
+
+def test_l2p_step_shows_its_query_pass_and_no_prefix_launch(cuda):
+    rows = _recorded_prompt_step(cuda, "L2P", {
+        "prompt_length": 5, "pool_size": 10, "top_k": 5, "pull_constraint_coeff": 1.0})
+    step = _one(rows, "trainer.step")
+    assert step["syncs"] == 0
+    assert not [k for k, _ in step["launches"] if k.startswith("pqkv")]
+    forward = _one(rows, "step.forward")
+    assert _one(rows, "step.query")["parent"] == forward["id"]
+    assert _one(rows, "step.prompts")["parent"] == forward["id"]
+
+
 # ------------------------------------------------ generic attention forward
 
 #: the bf16-score variant (fast_bf16sm): a sum-order difference that flips

@@ -24,7 +24,10 @@ from test_torch_rehearsal_trainer import _config as rehearsal_config  # noqa: E4
 from test_torch_trainer import OVERRIDES  # noqa: E402
 
 #: (name, parent's name) of every span a run with validation records; the
-#: step's children come from the base ``Method.train_step``
+#: step's children come from the base ``Method.train_step``, the query pass
+#: and the prompt choice from L2P's ``forward_logits``, in training, in
+#: evaluation and in the closing inference-rate probe, which no span holds (a
+#: tuple: any of these parents)
 TREE = {
     "trainer.build": None, "trainer.streams": "trainer.build", "method.build": "trainer.build",
     "method.init_state": "trainer.build",
@@ -34,6 +37,8 @@ TREE = {
     "step.backward": "trainer.step", "step.optimizer": "trainer.step",
     "trainer.boundary": "trainer.task", "method.after_task": "trainer.boundary",
     "method.extra_phases": "trainer.boundary", "trainer.eval": "trainer.task",
+    "step.query": ("step.forward", "trainer.eval", None),
+    "step.prompts": ("step.forward", "trainer.eval", None),
 }
 
 
@@ -69,7 +74,9 @@ def test_profile_run_gives_the_span_tree(runs):
     assert {r["name"] for r in rows} == set(TREE)
     for r in rows:
         parent = by_id.get(r["parent"])
-        assert (parent["name"] if parent else None) == TREE[r["name"]], r
+        allowed = TREE[r["name"]]
+        assert (parent["name"] if parent else None) in (
+            allowed if isinstance(allowed, tuple) else (allowed,)), r
         if parent is not None:  # nested within its parent on the host clock
             assert parent["host_start_ms"] <= r["host_start_ms"] <= r["host_end_ms"]
             assert r["host_end_ms"] <= parent["host_end_ms"]
